@@ -5,17 +5,27 @@
 
 Phases, each printed with its elapsed seconds as it ends:
 
-1. device: the card's name and power limit; build the CUDA kernels (nvcc).
+1. device: the card's name and power limit; build the CUDA kernels (one
+   nvcc per source, all at once).
 2. kernels: every kernel of the main path against its plain PyTorch version
-   on the card, bit for bit (field elements are exact integers).
-3. card vs CPU: a fib proof at trace 2^10 on the card and on the CPU; the
-   two Proof.to_bytes() must be equal and verify() must accept the proof.
+   on the card, bit for bit (field elements are exact integers): K1 row hash,
+   K2 merge, K3 field multiply (contiguous, broadcast, strided, Python-int
+   operands), and the device coin's permute_rows and draw kernels.
+3. card vs CPU: a fib proof at trace 2^10 on the card and on the CPU, on the
+   resident route and on the phased route; the four Proof.to_bytes() must be
+   equal and verify() must accept the proof.
 4. main path: bench.py's default workload through the port — fib over f64,
-   trace 2^18, cubic extension, Rp64_256 — proved and verified; one warm-up,
-   three timed proves with the phase barriers off (as bench.py times), then
-   one prove with them on for the per-phase split. Each kernel must have
-   launched during the first timed prove.
-5. kernel times at the main path's shapes against their operation bounds.
+   trace 2^18, cubic extension, Rp64_256 — proved and verified on the
+   default (resident) route and on the phased route (WINTER_RESIDENT=0's,
+   fused FRI): per route one warm-up, three timed proves with the phase
+   barriers off (as bench.py times), then one prove with them on for the
+   per-phase split. The resident proves run their device part under
+   torch.cuda.set_sync_debug_mode("error"): any host synchronisation there
+   fails the run. Each kernel must have launched during the first timed
+   resident prove.
+5. kernel times at the main path's shapes against their bounds: device time
+   per launch from launches replayed in a CUDA graph, beside the time per
+   call when the wrapper is called back to back from Python.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict. Any failure exits non-zero before that verdict. Without a
@@ -50,6 +60,9 @@ HBM_BYTES_PER_S = 3.35e12
 # Each of the 2 MDS per round is 144 small-constant products, one per 32-bit
 # half of the input (2 × 2 IMADs). 7·12·(65·6 + 11·8) + 7·2·144·4 = 48,216.
 IMAD_PER_PERM = 7 * 12 * (65 * 6 + 11 * 8) + 7 * 2 * 144 * 4
+# K3: one 64×64→128-bit product is 4 partial products of 2 IMADs each; the
+# reduction multiplies by 2^32 − 1 only (a shift and a subtract)
+IMAD_PER_MUL = 8
 
 
 def log(msg: str) -> None:
@@ -106,6 +119,34 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _kernel_ms(fn, reps: int) -> float:
+    """Mean milliseconds per launch of a kernel wrapper fn() on the card:
+    reps calls captured in one CUDA graph and replayed once between CUDA
+    events, so no host time sits between the launches (the wrapper's Python
+    work can outlast a short kernel, and _time_ms would then time the host)."""
+    if REHEARSAL:
+        return _time_ms(fn, reps)
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def _bound_hash(m: int, k: int):
     """(bound ms, bound_by) of K1 on (m, k) rows: the larger of the IMAD time
     and the bytes time (each input read once, each output written once)."""
@@ -114,10 +155,48 @@ def _bound_hash(m: int, k: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def _bound_merge(m: int):
-    ops_ms = m * IMAD_PER_PERM / IMAD_PER_S * 1000
-    bytes_ms = m * 96 / HBM_BYTES_PER_S * 1000
+def _bound(imads: float, nbytes: float):
+    """(bound ms, bound_by): the larger of the IMAD time and the bytes time."""
+    ops_ms = imads / IMAD_PER_S * 1000
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1000
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _bound_merge(m: int):
+    return _bound(m * IMAD_PER_PERM, m * 96)
+
+
+def _bound_mul(n: int):
+    """K3 on n elements: 16 bytes read and 8 written, 8 IMADs each."""
+    return _bound(n * IMAD_PER_MUL, n * 24)
+
+
+def _bound_permute(m: int):
+    """permute_rows on (m, 12): one permutation, 96 bytes in, 96 out."""
+    return _bound(m * IMAD_PER_PERM, m * 192)
+
+
+def _bound_draw(k: int, d: int):
+    """The draw kernel for k draws from k canonical candidates (every
+    candidate of this run's Rp64 digests is accepted, so it permutes
+    nothing): it reads the seed and k digests and writes k·d elements and
+    the counter."""
+    return _bound(0, 32 + k * 32 + k * d * 8 + 8)
+
+
+def _launches():
+    """Every kernel's launch count since the last _reset_launches()."""
+    from winterfell_tpu_torch.ops import device_coin, field_kernels, rescue
+
+    return {**rescue.LAUNCHES, **field_kernels.LAUNCHES,
+            **device_coin.LAUNCHES}
+
+
+def _reset_launches() -> None:
+    from winterfell_tpu_torch.ops import device_coin, field_kernels, rescue
+
+    for mod in (rescue, field_kernels, device_coin):
+        mod.reset_launches()
 
 
 def main() -> int:
@@ -134,7 +213,10 @@ def main() -> int:
         compute_fib_term,
     )
     from winterfell_tpu_torch.math.fields import F64
-    from winterfell_tpu_torch.ops import _build, rescue
+    from winterfell_tpu_torch.ops import _build, device_coin, field_kernels
+    from winterfell_tpu_torch.ops import goldilocks as gl
+    from winterfell_tpu_torch.ops import rescue
+    from winterfell_tpu_torch.prover import device as prover_device
     from winterfell_tpu_torch.prover.device import GoldilocksProver
     from winterfell_tpu_torch.utils import tracing
     from winterfell_tpu_torch.verifier import verify
@@ -143,8 +225,12 @@ def main() -> int:
     rng = np.random.default_rng(20260817)
     # main path: trace rows, and a scale for the kernel-check shapes
     log2_trace = 6 if REHEARSAL else 18
-    log2_cmp = 5 if REHEARSAL else 10
+    log2_cmp = 6 if REHEARSAL else 10  # both with FRI layers (resident)
     big = 1 << (log2_trace + 3)  # LDE rows (blowup 8)
+    # the wrappers route CPU tensors to the plain versions; the kernel
+    # entry points themselves take CUDA tensors only
+    k3 = gl.gl_mul if REHEARSAL else field_kernels.gl_mul_kernel
+    draw_k = device_coin.draw_plain if REHEARSAL else device_coin.draw_kernel
 
     # 1 ----- device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -161,12 +247,14 @@ def main() -> int:
         log(f"nvidia-smi: {smi}")
         tb = time.perf_counter()
         _build.build_all()
-        log(f"kernels built in {time.perf_counter() - tb:.2f} s")
+        log(f"kernels built in {time.perf_counter() - tb:.2f} s "
+            f"({', '.join(_build.SOURCES)})")
     phase("1 device", t0)
 
     # 2 ----- kernels against their plain versions, on the card -------------
     t0 = time.perf_counter()
-    errs = {"rp64_hash_rows": 0.0, "rp64_merge_rows": 0.0}
+    errs = {"rp64_hash_rows": 0.0, "rp64_merge_rows": 0.0, "gl_mul": 0.0,
+            "rp64_permute_rows": 0.0, "rp64_coin_draw": 0.0}
 
     def check(name, got, plain, shape):
         errs[name] = max(errs[name], _exact(got, plain, f"{name} {shape}"))
@@ -197,117 +285,267 @@ def main() -> int:
         check("rp64_hash_rows", rescue.rp64_hash_rows(x),
               rescue.rp64_hash_rows_plain(x), (m, k))
     log("K1 rp64_hash_rows and K2 rp64_merge_rows equal their plain versions")
+
+    # K3 at (LDE,) over all u64 patterns, the first elements the corner set
+    # of tests/test_pallas_kernels.py and patterns >= p, paired every way
+    p = gl.P
+    corners = [0, 1, 2, p - 1, p - 2, 2**32, 2**32 - 1, 2**32 + 1, 2**63,
+               2**63 - 1, p // 2, p // 2 + 1, 0xFFFFFFFF00000000 % p,
+               p, p + 1, 2**64 - 2**32, 2**64 - 2, 2**64 - 1]
+    a_np = rng.integers(0, 2**64, size=big, dtype=np.uint64)
+    b_np = rng.integers(0, 2**64, size=big, dtype=np.uint64)
+    pairs = [(x, y) for x in corners for y in corners]
+    a_np[: len(pairs)] = [x for x, _ in pairs]
+    b_np[: len(pairs)] = [y for _, y in pairs]
+    a = torch.from_numpy(a_np.view(np.int64)).to(dev)
+    b = torch.from_numpy(b_np.view(np.int64)).to(dev)
+    got = k3(a, b)
+    check("gl_mul", got, field_kernels.gl_mul_plain(a, b), (big,))
+    head = got[: len(pairs)].cpu().numpy().view(np.uint64)
+    if [int(v) for v in head] != [x * y % p for x, y in pairs]:
+        raise AssertionError("gl_mul: corner products differ from the "
+                             "Python-int oracle")
+    # the operand layouts the main path passes: a Python int, broadcast
+    # columns and extension coefficients, NTT butterfly halves with their
+    # twiddles, the prefix scan's shifted slices, extension components
+    ext = _rng_field(rng, (big, 3), dev)
+    blk = _rng_field(rng, (big // 64, 2, 32, 3), dev)
+    tw = _rng_field(rng, (1, 32, 1), dev)
+    scan = _rng_field(rng, (big // 128, 128), dev)
+    layouts = [("int", ext, gl.const(12345)), ("int>=p", ext, 2**64 - 1),
+               ("column", ext, ext[:, :1]), ("ext coeff", ext, ext[0][None]),
+               ("butterfly", blk[:, 1], tw), ("scan", scan[..., 5:],
+                                               scan[..., :-5]),
+               ("component", ext[..., 1], ext[..., 2])]
+    for name, x, y in layouts:
+        check("gl_mul", k3(x, y), field_kernels.gl_mul_plain(x, y),
+              (name, tuple(x.shape)))
+    log("K3 gl_mul equals its plain version (and the oracle on the corners)")
+
+    # the coin: permute_rows on given states, and the draw kernel on
+    # candidates of the main path's draws, with rejected candidates injected
+    # so the kernel's own continuation is held against the serial loop too
+    for m in (1, 5, 1000):
+        st = _rng_field(rng, (m, 12), dev)
+        perm = (device_coin.permute_rows(st) if not REHEARSAL else
+                device_coin.permute_rows_plain(st))
+        check("rp64_permute_rows", perm, device_coin.permute_rows_plain(st),
+              (m, 12))
+    seed = _rng_field(rng, (4,), dev)
+    _, next_candidates = device_coin.rp64_coin_ops()
+    for k, d, reject in ((1, 3, ()), (5, 3, ()), (7, 1, ()), (3, 2, (1,)),
+                         (2, 3, (0, 1))):
+        cands = next_candidates(seed, 0, k).clone()
+        for j in reject:  # an element >= p: that counter is rejected
+            cands[j, 4] = -1
+        got_e, got_c = draw_k(cands, seed, 0, k, d)
+        want_e, want_c = device_coin.draw_plain(cands, seed, 0, k, d)
+        check("rp64_coin_draw", torch.cat([got_e.reshape(-1), got_c]),
+              torch.cat([want_e.reshape(-1), want_c]), (k, d, reject))
+    log("the coin's permute_rows and draw kernels equal their plain versions")
     phase("2 kernels", t0)
 
-    # 3 ----- card vs CPU -----------------------------------------------------
+    # 3 ----- card vs CPU, both routes ---------------------------------------
     t0 = time.perf_counter()
     Prover = GoldilocksProver.accelerate(FibSmallProver)
     n_cmp = 1 << log2_cmp
-    proof_dev = Prover(options, Rp64_256, device=dev).prove(
-        build_fib_trace(F64, 2 * n_cmp, device=dev))
-    proof_cpu = Prover(options, Rp64_256, device="cpu").prove(
-        build_fib_trace(F64, 2 * n_cmp))
-    if proof_dev.to_bytes() != proof_cpu.to_bytes():
-        raise AssertionError("card proof bytes differ from CPU proof bytes")
-    verify(FibSmallAir, proof_dev, compute_fib_term(F64, 2 * n_cmp), Rp64_256)
-    log(f"fib 2^{log2_cmp}: card bytes == CPU bytes "
-        f"({len(proof_dev.to_bytes())} B), verified")
+    resident_default = prover_device._RESIDENT_ON_F64
+
+    def routed(resident: bool):
+        prover_device._RESIDENT_ON_F64 = resident
+        return "resident_pipeline" if resident else "fri_layers_fused"
+
+    ref_bytes = None
+    for resident in (True, False):
+        mark = routed(resident)
+        for where in (dev, torch.device("cpu")):
+            proof = Prover(options, Rp64_256, device=where).prove(
+                build_fib_trace(F64, 2 * n_cmp, device=where))
+            if mark not in [s["name"] for s in tracing.last_spans()]:
+                raise AssertionError(f"the prove on {where} missed {mark}")
+            if ref_bytes is None:
+                ref_bytes = proof.to_bytes()
+                verify(FibSmallAir, proof, compute_fib_term(F64, 2 * n_cmp),
+                       Rp64_256)
+            elif proof.to_bytes() != ref_bytes:
+                raise AssertionError(f"{mark} proof bytes on {where} differ")
+    routed(resident_default)
+    log(f"fib 2^{log2_cmp}: card bytes == CPU bytes on the resident and the "
+        f"phased route ({len(ref_bytes)} B), verified")
     phase("3 card vs cpu", t0)
 
-    # 4 ----- the main path at full size -------------------------------------
+    # 4 ----- the main path at full size, both routes ------------------------
     t0 = time.perf_counter()
     n = 1 << log2_trace
-    prover = Prover(options, Rp64_256, device=dev)
     trace = build_fib_trace(F64, 2 * n, device=dev)
     result = trace.get(1, n - 1)
     if result != compute_fib_term(F64, 2 * n):
         raise AssertionError("trace's last term differs from compute_fib_term")
-    warm = prover.prove(trace)
-    verify(FibSmallAir, warm, result, Rp64_256)
-    log(f"fib 2^{log2_trace} warm-up proved and verified")
-    if not REHEARSAL:
-        torch.cuda.reset_peak_memory_stats()
-    # the timed proves run free, as bench.py times its proves: no barrier at
-    # the phase marks, one synchronize at the end of each prove
-    tracing.set_phase_sync(False)
-    walls, launches = [], None
-    for i in range(3):
-        if i == 0:
-            rescue.reset_launches()
-        t = time.perf_counter()
-        proof = prover.prove(trace)
+    runs, warm_bytes = {}, None
+    for route in ("resident", "phased"):
+        mark = routed(route == "resident")
+        prover = Prover(options, Rp64_256, device=dev)
+        # any host synchronisation inside the resident device run raises
+        prover.resident_sync_debug = None if REHEARSAL else "error"
+        tracing.set_phase_sync(True)
+        warm = prover.prove(trace)
+        verify(FibSmallAir, warm, result, Rp64_256)
+        if warm_bytes is None:
+            warm_bytes = warm.to_bytes()
+        elif warm.to_bytes() != warm_bytes:
+            raise AssertionError("the phased proof differs from the resident")
         if not REHEARSAL:
-            torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        if i == 0:
-            launches = dict(rescue.LAUNCHES)
-        if proof.to_bytes() != warm.to_bytes():
-            raise AssertionError("repeated proves gave different bytes")
-    verify(FibSmallAir, proof, result, Rp64_256)
-    # one more prove, untimed, with a barrier at every phase mark: its marks
-    # are then the card's time per phase
+            torch.cuda.reset_peak_memory_stats()
+        # the timed proves run free, as bench.py times its proves: no barrier
+        # at the phase marks, one synchronize at the end of each prove
+        tracing.set_phase_sync(False)
+        walls, launches = [], None
+        for i in range(3):
+            if i == 0:
+                _reset_launches()
+            t = time.perf_counter()
+            proof = prover.prove(trace)
+            if not REHEARSAL:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+            if i == 0:
+                launches = _launches()
+            if mark not in [s["name"] for s in tracing.last_spans()]:
+                raise AssertionError(f"the {route} prove missed {mark}")
+            if proof.to_bytes() != warm_bytes:
+                raise AssertionError(f"{route} proves gave other bytes")
+        verify(FibSmallAir, proof, result, Rp64_256)
+        peak = 0 if REHEARSAL else torch.cuda.max_memory_allocated()
+        unchecked = []
+        if route == "resident":
+            # three more with the sync check off: what the check costs
+            prover.resident_sync_debug = None
+            for _ in range(3):
+                t = time.perf_counter()
+                if prover.prove(trace).to_bytes() != warm_bytes:
+                    raise AssertionError("unchecked proves gave other bytes")
+                if not REHEARSAL:
+                    torch.cuda.synchronize()
+                unchecked.append(time.perf_counter() - t)
+            prover.resident_sync_debug = None if REHEARSAL else "error"
+        # one more prove, untimed, with a barrier at every phase mark: its
+        # marks are then the card's time per phase
+        tracing.set_phase_sync(True)
+        t = time.perf_counter()
+        if prover.prove(trace).to_bytes() != warm_bytes:
+            raise AssertionError("the phase-split prove gave other bytes")
+        split_wall = time.perf_counter() - t
+        spans = tracing.last_spans()
+        runs[route] = launches
+        log(f"{route}: fib 2^{log2_trace} prove wall s (phase barriers off): "
+            f"min {min(walls):.4f} median {statistics.median(walls):.4f} "
+            f"runs {[round(w, 4) for w in walls]}")
+        if unchecked:
+            log(f"{route}: the same with the sync check off: min "
+                f"{min(unchecked):.4f} median "
+                f"{statistics.median(unchecked):.4f} runs "
+                f"{[round(w, 4) for w in unchecked]}")
+        log(f"{route}: phases (one more prove, barriers on, wall "
+            f"{split_wall:.4f} s; ms): " + ", ".join(
+                f"{s['name']} {1000 * s['seconds']:.1f}" for s in spans))
+        log(f"{route}: peak device memory {peak / 2**30:.3f} GiB; launches "
+            f"per prove {launches}; proof {len(proof.to_bytes())} B, verified")
+    routed(resident_default)
     tracing.set_phase_sync(True)
-    t = time.perf_counter()
-    if prover.prove(trace).to_bytes() != warm.to_bytes():
-        raise AssertionError("the phase-split prove gave different bytes")
-    split_wall = time.perf_counter() - t
-    spans = tracing.last_spans()
-    peak = 0 if REHEARSAL else torch.cuda.max_memory_allocated()
-    log(f"fib 2^{log2_trace} prove wall s (phase barriers off): min "
-        f"{min(walls):.4f} median {statistics.median(walls):.4f} runs "
-        f"{[round(w, 4) for w in walls]}")
-    log(f"phases (one more prove, barriers on, wall {split_wall:.4f} s; ms): "
-        + ", ".join(f"{s['name']} {1000 * s['seconds']:.1f}" for s in spans))
-    log(f"peak device memory {peak / 2**30:.3f} GiB; launches per prove "
-        f"{launches}; proof {len(proof.to_bytes())} B, verified")
-    for name, c in launches.items():
-        if not REHEARSAL and c <= 0:
-            raise AssertionError(f"kernel {name} was not launched by a prove")
+    if not REHEARSAL:
+        for name, c in runs["resident"].items():
+            if c <= 0:
+                raise AssertionError(f"kernel {name} was not launched by a "
+                                     "resident prove")
+    log("resident and phased proofs have the same bytes" + (
+        "" if REHEARSAL else "; the resident device run made no host "
+        "synchronisation"))
     phase("4 main path", t0)
 
     # 5 ----- kernel times at the main path's shapes -------------------------
     t0 = time.perf_counter()
     reps = 2 if REHEARSAL else 20
 
+    def entry(shape, fn, plain, bound):
+        return {"shape": list(shape), "ms": _kernel_ms(fn, reps),
+                "host_ms": _time_ms(fn, reps),
+                "plain_ms": _time_ms(plain, 1), "bound_ms": bound[0],
+                "bound_by": bound[1]}
+
     def hash_entry(m, k):
         x = _rng_field(rng, (m, k), dev)
-        bound, by = _bound_hash(m, k)
-        return {"shape": [m, k],
-                "ms": _time_ms(lambda: rescue.rp64_hash_rows(x), reps),
-                "plain_ms": _time_ms(lambda: rescue.rp64_hash_rows_plain(x), 1),
-                "bound_ms": bound, "bound_by": by}
+        return entry((m, k), lambda: rescue.rp64_hash_rows(x),
+                     lambda: rescue.rp64_hash_rows_plain(x), _bound_hash(m, k))
 
     def merge_entry(m):
         level = _rng_field(rng, (2 * m, 4), dev)
         l, r = level[0::2], level[1::2]
-        bound, by = _bound_merge(m)
-        return {"shape": [m, 4],
-                "ms": _time_ms(lambda: rescue.rp64_merge_rows(l, r), reps),
-                "plain_ms": _time_ms(
-                    lambda: rescue.rp64_merge_rows_plain(l, r), 1),
-                "bound_ms": bound, "bound_by": by}
+        return entry((m, 4), lambda: rescue.rp64_merge_rows(l, r),
+                     lambda: rescue.rp64_merge_rows_plain(l, r),
+                     _bound_merge(m))
 
+    def mul_entry(x, y, shape):
+        return entry(shape, lambda: k3(x, y),
+                     lambda: field_kernels.gl_mul_plain(x, y),
+                     _bound_mul(int(np.prod(shape))))
+
+    def permute_entry(m):
+        st = _rng_field(rng, (m, 12), dev)
+        fn = (device_coin.permute_rows if not REHEARSAL else
+              device_coin.permute_rows_plain)
+        return entry((m, 12), lambda: fn(st),
+                     lambda: device_coin.permute_rows_plain(st),
+                     _bound_permute(m))
+
+    def draw_entry(k, d):
+        cands = next_candidates(seed, 0, k)
+        return entry((k, d), lambda: draw_k(cands, seed, 0, k, d),
+                     lambda: device_coin.draw_plain(cands, seed, 0, k, d),
+                     _bound_draw(k, d))
+
+    # K3's second shape: an NTT butterfly stage of the composition LDE
+    # (strided halves times broadcast twiddles)
+    bfly = _rng_field(rng, (big // 64, 2, 32, 3), dev)
+    tw = _rng_field(rng, (1, 32, 1), dev)
+    n_ccs = comp_air.context.num_transition_constraints + \
+        comp_air.context.num_assertions
     records = [
         ("rp64_hash_rows", "winterfell_tpu/ops/pallas_rescue.py:596",
-         [hash_entry(big, 2), hash_entry(big // 8, 24)]),
+         "winterfell_tpu_torch/csrc/rescue.cu",
+         # the last shape is K4's: scripts/pallas_loop_exp.py runs K1's
+         # body on (2^21, 12) rows
+         [hash_entry(big, 2), hash_entry(big // 8, 24), hash_entry(big, 12)]),
         ("rp64_merge_rows", "winterfell_tpu/ops/pallas_rescue.py:632",
-         [merge_entry(big // 2)]),
+         "winterfell_tpu_torch/csrc/rescue.cu", [merge_entry(big // 2)]),
+        ("gl_mul", "winterfell_tpu/ops/pallas_kernels.py:129",
+         "winterfell_tpu_torch/csrc/goldilocks.cu",
+         [mul_entry(a, b, (big,)),
+          mul_entry(bfly[:, 1], tw, (big // 64, 32, 3))]),
+        ("rp64_permute_rows", "none: port-only (the JAX coin permutes in "
+         "jnp, winterfell_tpu/ops/device_coin.py:140)",
+         "winterfell_tpu_torch/csrc/rescue.cu",
+         [permute_entry(n_ccs), permute_entry(1)]),
+        ("rp64_coin_draw", "none: port-only (the JAX coin's lax.while_loop, "
+         "winterfell_tpu/ops/device_coin.py:302)",
+         "winterfell_tpu_torch/csrc/rescue.cu",
+         [draw_entry(n_ccs, 3), draw_entry(1, 3)]),
     ]
     kernels = []
-    for name, replaces, shapes in records:
+    for name, replaces, source, shapes in records:
         main = shapes[0]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "winterfell_tpu_torch/csrc/rescue.cu",
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": runs["resident"][name],
+            "launches_phased": runs["phased"][name],
             "max_abs_err": errs[name], "max_diff": errs[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"], "shapes": shapes})
     for kr in kernels:
         for s in kr["shapes"]:
-            log(f"{kr['name']} {s['shape']}: {s['ms']:.3f} ms, plain "
-                f"{s['plain_ms']:.1f} ms, bound {s['bound_ms']:.3f} ms "
+            log(f"{kr['name']} {s['shape']}: {s['ms']:.4f} ms (launched "
+                f"back to back from Python {s['host_ms']:.4f} ms), plain "
+                f"{s['plain_ms']:.1f} ms, bound {s['bound_ms']:.4f} ms "
                 f"({s['bound_by']})")
     phase("5 kernel times", t0)
 

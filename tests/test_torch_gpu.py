@@ -12,7 +12,9 @@ import torch
 
 from winterfell_tpu_torch import FieldExtension, ProofOptions, Rp64_256, F64
 from winterfell_tpu_torch.examples import fibonacci as tfib
-from winterfell_tpu_torch.ops import rescue
+from winterfell_tpu_torch.ops import device_coin, field_kernels, rescue
+from winterfell_tpu_torch.ops import goldilocks as gl
+from winterfell_tpu_torch.prover import device as prover_device
 from winterfell_tpu_torch.prover.device import GoldilocksProver
 
 pytestmark = pytest.mark.gpu
@@ -27,8 +29,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _rand(seed, shape, device):
-    a = np.random.default_rng(seed).integers(0, P, size=shape, dtype=np.uint64)
+def _rand(seed, shape, device, high=P):
+    a = np.random.default_rng(seed).integers(0, high, size=shape,
+                                             dtype=np.uint64)
     a.flat[0], a.flat[-1] = P - 1, 0
     return torch.from_numpy(a.view(np.int64)).to(device)
 
@@ -51,14 +54,76 @@ def test_merge_rows_kernel_equals_plain(cuda, m):
                        rescue.rp64_merge_rows_plain(level[0::2], level[1::2]))
 
 
+def test_gl_mul_kernel_equals_plain_over_all_u64(cuda):
+    for n in (1, 1000, 1 << 21):
+        a, b = _rand(n, (n,), cuda, 2**64), _rand(n + 1, (n,), cuda, 2**64)
+        got = field_kernels.gl_mul_kernel(a, b)
+        assert torch.equal(got, field_kernels.gl_mul_plain(a, b)), n
+        assert torch.equal(gl.gl_mul(a, b), got)  # the routed entry point
+        head = got[:64].cpu().numpy().view(np.uint64)
+        a_h = a[:64].cpu().numpy().view(np.uint64)
+        b_h = b[:64].cpu().numpy().view(np.uint64)
+        assert [int(v) for v in head] == [int(x) * int(y) % P
+                                          for x, y in zip(a_h, b_h)]
+
+
+def test_gl_mul_kernel_reads_broadcast_strided_and_int_operands(cuda):
+    x = _rand(7, (64, 2, 16, 3), cuda, 2**64)
+    y = _rand(8, (4, 256), cuda, 2**64)
+    cases = [(x[:, 1], x[:, 0]), (x[:, 1], x[0, :1, :, :1]),
+             (y[..., 9:], y[..., :-9]), (x[..., 2], x[..., 0]),
+             (x, x[0, 0, 0]), (y, 2**64 - 1), (y, gl.const(3)),
+             (y[:, 5], y[:, 6])]
+    for a, b in cases:
+        assert torch.equal(field_kernels.gl_mul_kernel(a, b),
+                           field_kernels.gl_mul_plain(a, b))
+
+
+def test_permute_rows_kernel_equals_plain(cuda):
+    for m in (1, 7, 1000):
+        states = _rand(m + 5, (m, 12), cuda)
+        assert torch.equal(device_coin.permute_rows(states),
+                           device_coin.permute_rows_plain(states)), m
+
+
+def test_coin_draw_kernel_equals_plain(cuda):
+    _, next_candidates = device_coin.rp64_coin_ops()
+    for k, d, reject in ((1, 3, ()), (6, 3, ()), (4, 1, (2,)), (2, 2, (0, 1))):
+        seed = _rand(k, (4,), cuda)
+        cands = next_candidates(seed, 0, k).clone()
+        for j in reject:  # an element >= p: that counter is rejected
+            cands[j, 4] = -1
+        got = device_coin.draw_kernel(cands, seed, 0, k, d)
+        want = device_coin.draw_plain(cands, seed, 0, k, d)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_resident_and_phased_card_proofs_equal_cpu_proof(cuda, monkeypatch):
+    """Trace 2^10 (two FRI layers with bench_fib's options): both routes on
+    the card give the CPU's bytes; the resident device run makes no host
+    synchronisation."""
+    opts = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
+    prover_cls = GoldilocksProver.accelerate(tfib.FibSmallProver)
+    cpu = prover_cls(opts, Rp64_256, device="cpu").prove(
+        tfib.build_fib_trace(F64, 2048))
+    for resident in (True, False):
+        monkeypatch.setattr(prover_device, "_RESIDENT_ON_F64", resident)
+        prover = prover_cls(opts, Rp64_256)
+        prover.resident_sync_debug = "error"
+        card = prover.prove(tfib.build_fib_trace(F64, 2048, device=cuda))
+        assert card.to_bytes() == cpu.to_bytes(), resident
+
+
 def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):
     opts = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
     prover_cls = GoldilocksProver.accelerate(tfib.FibSmallProver)
     rescue.reset_launches()
+    field_kernels.reset_launches()
     card = prover_cls(opts, Rp64_256).prove(
         tfib.build_fib_trace(F64, 64, device=cuda))
-    launches = dict(rescue.LAUNCHES)
+    launches = {**rescue.LAUNCHES, **field_kernels.LAUNCHES}
     cpu = prover_cls(opts, Rp64_256, device="cpu").prove(
         tfib.build_fib_trace(F64, 64))
     assert card.to_bytes() == cpu.to_bytes()
     assert launches["rp64_hash_rows"] > 0 and launches["rp64_merge_rows"] > 0
+    assert launches["gl_mul"] > 0

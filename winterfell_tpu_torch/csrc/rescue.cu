@@ -1,4 +1,6 @@
-// Rescue-Prime Rp64_256 row hashing (K1) and 2-to-1 merge (K2) for Hopper.
+// Rescue-Prime Rp64_256 row hashing (K1) and 2-to-1 merge (K2) for Hopper,
+// and the two kernels of the device coin (ops/device_coin.py): the bare
+// permutation of given states and the rejection-sampling draw.
 //
 // Field elements are canonical Goldilocks values (p = 2^64 - 2^32 + 1) held
 // as native uint64_t. The permutation is the reference's Rescue-XLIX
@@ -188,6 +190,81 @@ merge_rows_kernel(const uint64_t* __restrict__ left,
   for (int j = 0; j < 4; ++j) out[i * 4 + j] = s[4 + j];
 }
 
+// The permutation of each given 12-lane state: the device coin's
+// merge_with_int (candidate states, rp64_256/mod.rs:235-254) runs through it.
+// Same bound and design as K2: one thread per state, one permutation.
+__global__ void __launch_bounds__(BLOCK)
+permute_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                    const uint64_t* __restrict__ ark, int64_t m) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
+  if (i >= m) return;
+  uint64_t s[WIDTH];
+#pragma unroll
+  for (int j = 0; j < WIDTH; ++j) s[j] = in[i * WIDTH + j];
+  permute(s, ark);
+#pragma unroll
+  for (int j = 0; j < WIDTH; ++j) out[i * WIDTH + j] = s[j];
+}
+
+// The draw loop of the device coin, with no TPU kernel behind it (the JAX
+// package runs it as a lax.while_loop, winterfell_tpu/ops/device_coin.py
+// make_draw): k draws of a degree-d element under the counter semantics of
+// the reference's DefaultRandomCoin::draw (crypto/src/random/default.rs:
+// 120-139). The counter increments before each candidate; candidate
+// merge_with_int(seed, counter) is accepted when its first d digest elements
+// are all < p; draw i takes the first accepted candidate after draw i-1's.
+// cands holds the permuted candidate states for counters counter0 + 1 ..
+// counter0 + t (rp64_permute_rows, all at once); past those the kernel
+// permutes further candidates itself, one after another. One thread does
+// the scan, so the result is the serial loop's. Rp64_256 digests are
+// canonical, so every candidate is accepted and the scan reads k states.
+// A draw that finds nothing in 1000 candidates (the host coin's limit)
+// stops the kernel with the counter set to 2^64 - 1. Bound: latency (one
+// thread, k reads); it runs once per Fiat-Shamir draw.
+__global__ void coin_draw_kernel(const uint64_t* __restrict__ cands,
+                                 const uint64_t* __restrict__ seed,
+                                 const uint64_t* __restrict__ ark,
+                                 uint64_t* __restrict__ elems,
+                                 uint64_t* __restrict__ counter_out,
+                                 uint64_t counter0, int64_t t, int64_t k,
+                                 int64_t d) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  uint64_t ctr = counter0;
+  int64_t j = 0;
+  for (int64_t got = 0; got < k; ++got) {
+    bool ok = false;
+    for (int tries = 0; tries < 1000 && !ok; ++tries, ++j) {
+      ++ctr;
+      uint64_t s[WIDTH];
+      if (j < t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 + e] = cands[j * WIDTH + 4 + e];
+      } else {
+        // merge_with_int(seed, ctr): state[0] = 5 (6 when ctr >= p),
+        // state[4..8] = seed, state[8] = ctr mod p, state[9] = ctr div p
+        const uint64_t hi = ctr >= P ? 1 : 0;
+        s[0] = 5 + hi;
+        s[1] = s[2] = s[3] = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 + e] = seed[e];
+        s[8] = ctr - hi * P;
+        s[9] = hi;
+        s[10] = s[11] = 0;
+        permute(s, ark);
+      }
+      ok = true;
+      for (int64_t e = 0; e < d; ++e) ok = ok && s[4 + e] < P;
+      if (ok)
+        for (int64_t e = 0; e < d; ++e) elems[got * d + e] = s[4 + e];
+    }
+    if (!ok) {
+      counter_out[0] = ~0ull;
+      return;
+    }
+  }
+  counter_out[0] = ctr;
+}
+
 inline unsigned int grid_for(int64_t m) {
   return static_cast<unsigned int>((m + BLOCK - 1) / BLOCK);
 }
@@ -212,6 +289,27 @@ int wt_rp64_merge_rows(const void* left, const void* right, void* out,
   merge_rows_kernel<<<grid_for(m), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(left), static_cast<const uint64_t*>(right),
       static_cast<uint64_t*>(out), static_cast<const uint64_t*>(ark), m, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// states (m, 12) row-major -> out (m, 12).
+int wt_rp64_permute_rows(const void* states, void* out, const void* ark,
+                         int64_t m, void* stream) {
+  permute_rows_kernel<<<grid_for(m), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(states), static_cast<uint64_t*>(out),
+      static_cast<const uint64_t*>(ark), m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// cands (t, 12) permuted candidate states for counters counter0 + 1.., seed
+// (4,), elems (k, d) out, counter_out (1,) out.
+int wt_rp64_coin_draw(const void* cands, const void* seed, const void* ark,
+                      void* elems, void* counter_out, uint64_t counter0,
+                      int64_t t, int64_t k, int64_t d, void* stream) {
+  coin_draw_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(cands), static_cast<const uint64_t*>(seed),
+      static_cast<const uint64_t*>(ark), static_cast<uint64_t*>(elems),
+      static_cast<uint64_t*>(counter_out), counter0, t, k, d);
   return static_cast<int>(cudaGetLastError());
 }
 

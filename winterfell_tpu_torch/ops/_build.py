@@ -23,7 +23,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("rescue",)
+SOURCES = ("rescue", "goldilocks")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

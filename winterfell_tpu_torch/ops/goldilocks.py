@@ -16,10 +16,11 @@ with 2^64 ≡ 2^32 − 1 and 2^96 ≡ −1 (mod p), as the JAX engine does
 so results are bit-identical to the exact host oracle in ``math/`` whatever
 the device.
 
-These functions are plain tensor code that runs wherever its inputs lie. The
-Rescue row hash and 2-to-1 merge dispatch to the hand-written CUDA kernels in
-``ops/rescue.py`` for CUDA tensors and to their plain torch versions for CPU
-tensors.
+These functions are plain tensor code that runs wherever its inputs lie,
+except for three that dispatch on the device: ``gl_mul`` (every field
+multiply) to the kernel of ``ops/field_kernels.py``, and the Rescue row hash
+and 2-to-1 merge to those of ``ops/rescue.py`` — the hand-written CUDA kernel
+for a CUDA tensor, its plain torch version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from ..math.fields import F64, GOLDILOCKS_P, Field
-from . import rescue
+from . import field_kernels, rescue
 
 P = GOLDILOCKS_P
 I64 = torch.int64
@@ -49,20 +50,39 @@ _EPS = 0xFFFFFFFF       # 2^64 mod p
 _SIGN = -(1 << 63)
 _P_FLIP = _s64(P) ^ _SIGN  # p with the sign bit flipped, for unsigned compares
 
+# The hot ops below call torch's functions with 0-dim CPU tensor constants
+# (which every device takes as scalars) rather than Python operators with
+# int constants: the same kernels, at about half the host time per call,
+# which is what a small tensor costs.
+_T_MASK32 = torch.tensor(_MASK32)
+_T_EPS = torch.tensor(_EPS)
+_T_SIGN = torch.tensor(_SIGN)
+_T_P_FLIP = torch.tensor(_P_FLIP)
+_T_P_S = torch.tensor(_P_S)
+_T_32 = torch.tensor(32)
+_and, _or, _xor = torch.bitwise_and, torch.bitwise_or, torch.bitwise_xor
+_shr, _shl = torch.bitwise_right_shift, torch.bitwise_left_shift
+_add, _sub, _mul, _where = torch.add, torch.sub, torch.mul, torch.where
+
+
+def _flip(x):
+    """x with its sign bit flipped (tensor or Python int)."""
+    return x ^ _SIGN if isinstance(x, int) else _xor(x, _T_SIGN)
+
 
 def _ult(a, b):
     """Unsigned a < b on int64 bit patterns."""
-    return (a ^ _SIGN) < (b ^ _SIGN)
+    return torch.lt(_flip(a), _flip(b))
 
 
 def _hi32(a):
     """Logical a >> 32."""
-    return (a >> 32) & _MASK32
+    return _and(_shr(a, _T_32), _T_MASK32)
 
 
 def _canon(s):
     """s mod p for any u64 pattern s (one conditional subtract)."""
-    return torch.where((s ^ _SIGN) >= _P_FLIP, s - _P_S, s)
+    return _where(torch.ge(_flip(s), _T_P_FLIP), _sub(s, _T_P_S), s)
 
 
 _dev_cache: Dict[tuple, torch.Tensor] = {}
@@ -83,14 +103,14 @@ def _cached(key, build):
 
 def gl_add(a, b):
     """(a + b) mod p: on u64 overflow add 2^32 − 1, then canonicalize."""
-    s = a + b
-    s = torch.where(_ult(s, a), s + _EPS, s)
+    s = _add(a, b)
+    s = _where(_ult(s, a), _add(s, _T_EPS), s)
     return _canon(s)
 
 
 def gl_sub(a, b):
-    d = a - b
-    return torch.where(_ult(a, b), d - _EPS, d)
+    d = _sub(a, b)
+    return _where(_ult(a, b), _sub(d, _T_EPS), d)
 
 
 def gl_neg(a):
@@ -98,33 +118,57 @@ def gl_neg(a):
 
 
 def _mul_128(a, b):
-    """Full 128-bit product of u64 patterns as (hi, lo) u64 patterns."""
-    a_lo, a_hi = a & _MASK32, _hi32(a)
-    b_lo, b_hi = b & _MASK32, _hi32(b)
-    t0 = a_lo * b_lo
-    t1 = a_lo * b_hi
-    t2 = a_hi * b_lo
-    t3 = a_hi * b_hi
-    mid = _hi32(t0) + (t1 & _MASK32) + (t2 & _MASK32)
-    lo = (t0 & _MASK32) | (mid << 32)
-    hi = t3 + _hi32(t1) + _hi32(t2) + _hi32(mid)
+    """Full 128-bit product of u64 patterns (tensors) as (hi, lo) u64
+    patterns."""
+    a_lo, a_hi = _and(a, _T_MASK32), _hi32(a)
+    b_lo, b_hi = _and(b, _T_MASK32), _hi32(b)
+    t0 = _mul(a_lo, b_lo)
+    t1 = _mul(a_lo, b_hi)
+    t2 = _mul(a_hi, b_lo)
+    t3 = _mul(a_hi, b_hi)
+    mid = _add(_add(_hi32(t0), _and(t1, _T_MASK32)), _and(t2, _T_MASK32))
+    lo = _or(_and(t0, _T_MASK32), _shl(mid, _T_32))
+    hi = _add(_add(_add(t3, _hi32(t1)), _hi32(t2)), _hi32(mid))
     return hi, lo
 
 
-def _reduce_128(hi, lo):
-    """hi·2^64 + lo mod p via 2^64 ≡ 2^32 − 1, 2^96 ≡ −1."""
+def _sqr_128(a):
+    """Full 128-bit square of u64 patterns as (hi, lo): _mul_128(a, a) with
+    the equal cross products computed once."""
+    a_lo, a_hi = _and(a, _T_MASK32), _hi32(a)
+    t0 = _mul(a_lo, a_lo)
+    t1 = _mul(a_lo, a_hi)
+    t3 = _mul(a_hi, a_hi)
+    mid = _add(_hi32(t0), _shl(_and(t1, _T_MASK32), 1))
+    lo = _or(_and(t0, _T_MASK32), _shl(mid, _T_32))
+    hi = _add(_add(t3, _shl(_hi32(t1), 1)), _hi32(mid))
+    return hi, lo
+
+
+def _reduce_128_lazy(hi, lo):
+    """hi·2^64 + lo mod p via 2^64 ≡ 2^32 − 1, 2^96 ≡ −1, as a u64 pattern
+    that may still be >= p (a valid input to the next multiply)."""
     hi_hi = _hi32(hi)
-    t0 = lo - hi_hi
-    t0 = torch.where(_ult(lo, hi_hi), t0 - _EPS, t0)
-    t1 = (hi & _MASK32) * _EPS
-    t2 = t0 + t1
-    t2 = torch.where(_ult(t2, t0), t2 + _EPS, t2)
-    return _canon(t2)
+    t0 = _sub(lo, hi_hi)
+    t0 = _where(_ult(lo, hi_hi), _sub(t0, _T_EPS), t0)
+    t1 = _mul(_and(hi, _T_MASK32), _T_EPS)
+    t2 = _add(t0, t1)
+    return _where(_ult(t2, t0), _add(t2, _T_EPS), t2)
+
+
+def _reduce_128(hi, lo):
+    """hi·2^64 + lo mod p, canonical."""
+    return _canon(_reduce_128_lazy(hi, lo))
 
 
 def gl_mul(a, b):
-    hi, lo = _mul_128(a, b)
-    return _reduce_128(hi, lo)
+    """a·b mod p (``b`` a tensor that broadcasts against ``a``, or a Python
+    int). The layout is checked on every device; then a CUDA tensor goes to
+    the K3 kernel and a CPU tensor to its plain version."""
+    layout = field_kernels.mul_layout(a, b)
+    if a.device.type == "cpu":
+        return field_kernels.gl_mul_plain(a, b)
+    return field_kernels.gl_mul_kernel(a, b, layout)
 
 
 def gl_mul_small(a, c):
@@ -212,10 +256,15 @@ def _frobenius_consts(d: int) -> np.ndarray:
                     dtype=np.int64)
 
 
+def frobenius_table(d: int, device) -> torch.Tensor:
+    """The (d, d) Frobenius matrix on ``device`` (built once per process)."""
+    return _cached(("frob", d, str(device)),
+                   lambda: torch.from_numpy(_frobenius_consts(d)).to(device))
+
+
 def ext_frobenius(a):
     d = a.shape[-1]
-    fr = _cached(("frob", d, str(a.device)),
-                 lambda: torch.from_numpy(_frobenius_consts(d)).to(a.device))
+    fr = frobenius_table(d, a.device)
     acc = None
     for i in range(d):
         term = gl_mul(a[..., i : i + 1], fr[i])
@@ -241,6 +290,30 @@ def ext_inv(a):
         return gl_inv(a)
     c, norm = _conj_norm(a)
     return ext_mul_base(c, gl_inv(norm))
+
+
+def pow_table_from_jumps(jumps, n: int):
+    """(n, d) table of z^k from the jumps z^(2^j) ((log n, d)), by
+    log-doubling (winterfell_tpu/prover/device.py _pow_table_from_jumps):
+    the z and z·g tables of the OOD step when z lives on the device. The
+    table starts from one, made on the device (no host copy)."""
+    d, dev = jumps.shape[1], jumps.device
+    cur = torch.cat([torch.ones((1, 1), dtype=I64, device=dev),
+                     torch.zeros((1, d - 1), dtype=I64, device=dev)], dim=1)
+    j = 0
+    while cur.shape[0] < n:
+        cur = torch.cat([cur, ext_mul(cur, jumps[j].expand(cur.shape[0], d))])
+        j += 1
+    return cur[:n]
+
+
+def ext_power_table(e, n: int):
+    """(n, d) powers e^k, k < n, of a (d,) device element; the jumps
+    e^(2^j) are squarings on the device."""
+    jumps = [e]
+    for _ in range(max((n - 1).bit_length(), 1) - 1):
+        jumps.append(ext_mul(jumps[-1], jumps[-1]))
+    return pow_table_from_jumps(torch.stack(jumps), n)
 
 
 _BATCH_INV_G = 128  # scan-block width
@@ -322,18 +395,26 @@ def _root(n: int, inverse: bool) -> int:
     return pow(r, P - 2, P) if inverse else r
 
 
+def ntt_plan(n: int, inverse: bool, device):
+    """(bit-reversal permutation, n/2 powers of the n-th root) of a size-n
+    transform on ``device``, built once per process. Building a plan copies
+    the permutation from the host, so the resident prove builds every plan it
+    needs before its device run."""
+    perm = _cached(("bitrev", n, str(device)),
+                   lambda: torch.from_numpy(_bitrev_perm(n)).to(device))
+    tw_all = _cached(("tw", n, inverse, str(device)),
+                     lambda: power_series(_root(n, inverse), n // 2, device))
+    return perm, tw_all
+
+
 def _ntt_core(x, n: int, inverse: bool):
     """x: (n, ...) → NTT/iNTT without the 1/n scale, natural order in/out.
     Stage m uses the m-th roots w_n^(j·n/m): strided slices of one table of
     n/2 powers of w_n."""
     if n == 1:
         return x
-    dev = x.device
     rest = x.shape[1:]
-    perm = _cached(("bitrev", n, str(dev)),
-                   lambda: torch.from_numpy(_bitrev_perm(n)).to(dev))
-    tw_all = _cached(("tw", n, inverse, str(dev)),
-                     lambda: power_series(_root(n, inverse), n // 2, dev))
+    perm, tw_all = ntt_plan(n, inverse, x.device)
     x = x.index_select(0, perm)
     half = 1
     while half < n:
@@ -361,12 +442,17 @@ def ntt_interpolate(evals, n: int):
     return gl_mul(coeffs, const(pow(n, P - 2, P)))
 
 
+def lde_offset_powers(n: int, offset: int, device):
+    """offset^i for i < n, the coefficient scale of the coset LDE."""
+    return _cached(("pows", offset % P, n, 1, str(device)),
+                   lambda: power_series(offset, n, device))
+
+
 def ntt_evaluate_with_offset(coeffs, n: int, offset: int, blowup: int):
     """Coset LDE, natural order over the n·blowup domain offset·h^m (matches
     math.ntt.evaluate_poly_with_offset value for value)."""
     dev = coeffs.device
-    off_pows = _cached(("pows", offset % P, n, 1, str(dev)),
-                       lambda: power_series(offset, n, dev))
+    off_pows = lde_offset_powers(n, offset, dev)
     scaled = gl_mul(coeffs, _col(off_pows, coeffs.ndim))
     big_n = n * blowup
     padded = torch.cat([scaled, torch.zeros((big_n - n,) + coeffs.shape[1:],

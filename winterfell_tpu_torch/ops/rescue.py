@@ -1,5 +1,7 @@
 """Rp64_256 row hashing (K1) and 2-to-1 merge (K2): the port of the TPU's
-Pallas kernels in winterfell_tpu/ops/pallas_rescue.py.
+Pallas kernels in winterfell_tpu/ops/pallas_rescue.py. (The same CUDA source
+holds the device coin's two kernels; their wrappers are in
+ops/device_coin.py.)
 
 Each function has three parts:
 
@@ -9,7 +11,9 @@ Each function has three parts:
   for a CPU tensor it runs the plain version; any other device raises;
 - the plain PyTorch version (``*_plain``) of the same function, vectorised
   over rows and the 12 state lanes. The CPU tests use it, and
-  ``chip_smoke.py`` holds the kernel against it on the card;
+  ``chip_smoke.py`` holds the kernel against it on the card. Its field
+  multiplies are ``gl_mul_plain``, never the routed ``gl_mul``, so on the
+  card it runs no kernel of its own;
 - the launch count, a plain integer per kernel.
 
 Inputs are int64 tensors of canonical Goldilocks elements (u64 bit patterns).
@@ -25,7 +29,7 @@ import torch
 
 from ..crypto.rescue_constants import RP64_256_ARK1, RP64_256_ARK2, RP64_256_MDS
 from ..math.fields import GOLDILOCKS_P
-from . import goldilocks as gl
+from . import field_kernels, goldilocks as gl
 
 P = GOLDILOCKS_P
 _WIDTH, _RATE, _ROUNDS = 12, 8, 7
@@ -75,32 +79,36 @@ def _perm_plain(state):
     return state
 
 
+def _squarings_plain(x, k: int):
+    """x^(2^k): k squarings, each reduced below 2^64 but not below p (the
+    next squaring takes any u64 pattern), canonical at the end."""
+    for _ in range(k):
+        x = gl._reduce_128_lazy(*gl._sqr_128(x))
+    return gl._canon(x)
+
+
 def _sbox_plain(x):
-    gl_mul = gl.gl_mul
-    x2 = gl_mul(x, x)
-    x4 = gl_mul(x2, x2)
+    gl_mul = field_kernels.gl_mul_plain
+    x2 = _squarings_plain(x, 1)
+    x4 = _squarings_plain(x2, 1)
     return gl_mul(gl_mul(x4, x2), x)
 
 
 def _inv_sbox_plain(x):
     """x^INV_ALPHA by the reference's 72-multiplication addition chain."""
-    gl_mul = gl.gl_mul
+    gl_mul = field_kernels.gl_mul_plain
 
     def exp_acc(base, tail, k):
-        for _ in range(k):
-            base = gl_mul(base, base)
-        return gl_mul(base, tail)
+        return gl_mul(_squarings_plain(base, k), tail)
 
-    t1 = gl_mul(x, x)
-    t2 = gl_mul(t1, t1)
+    t1 = _squarings_plain(x, 1)
+    t2 = _squarings_plain(t1, 1)
     t3 = exp_acc(t2, t2, 3)
     t4 = exp_acc(t3, t3, 6)
     t5 = exp_acc(t4, t4, 12)
     t6 = exp_acc(t5, t3, 6)
     t7 = exp_acc(t6, t6, 31)
-    a = gl_mul(gl_mul(t7, t7), t6)
-    a = gl_mul(a, a)
-    a = gl_mul(a, a)
+    a = _squarings_plain(gl_mul(_squarings_plain(t7, 1), t6), 2)
     return gl_mul(a, gl_mul(gl_mul(t1, t2), x))
 
 
@@ -162,6 +170,11 @@ def _kernels():
         lib.wt_rp64_hash_rows.restype = ctypes.c_int
         lib.wt_rp64_merge_rows.argtypes = [vp, vp, vp, vp, i64, i64, vp]
         lib.wt_rp64_merge_rows.restype = ctypes.c_int
+        lib.wt_rp64_permute_rows.argtypes = [vp, vp, vp, i64, vp]
+        lib.wt_rp64_permute_rows.restype = ctypes.c_int
+        lib.wt_rp64_coin_draw.argtypes = [vp, vp, vp, vp, vp, ctypes.c_uint64,
+                                          i64, i64, i64, vp]
+        lib.wt_rp64_coin_draw.restype = ctypes.c_int
         _lib = lib
     return _lib
 

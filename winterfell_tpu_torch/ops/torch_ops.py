@@ -23,18 +23,17 @@ class TorchOps:
 
     # -- construction -------------------------------------------------------
 
+    # constants are made on the device (fills, no host copy), so an AIR's
+    # constraints add no host synchronisation to the resident route
+
     def constant(self, v: int):
-        out = torch.zeros((1, self.field.degree), dtype=gl.I64, device=self.device)
-        out[0, 0] = gl.const(v)
-        return out
+        return self.lift((v,) + (0,) * (self.field.degree - 1))
 
     def lift(self, e):
         if not isinstance(e, tuple):
             return e  # already a tensor (e.g. aux randomness)
-        out = torch.zeros((1, self.field.degree), dtype=gl.I64, device=self.device)
-        for i, v in enumerate(e):
-            out[0, i] = gl.const(v)
-        return out
+        return torch.cat([torch.full((1, 1), gl.const(v), dtype=gl.I64,
+                                     device=self.device) for v in e], dim=1)
 
     def zeros(self, n: int):
         return torch.zeros((n, self.field.degree), dtype=gl.I64,

@@ -4,10 +4,12 @@
 
 Proves fib over f64 (cubic, Rp64_256, bench.py's options) once to warm up,
 then once under ``torch.profiler`` with phase barriers off, and prints one
-JSON object: the wall time, the device time summed over kernels, the share
-of the wall during which some kernel ran (busy share, from the union of the
-kernel intervals), the number of kernel launches, and the kernels with the
-most device time. Needs a CUDA card; exits non-zero without one.
+JSON object: the route the prove took (resident by default;
+``WINTER_RESIDENT=0`` for the phased one), the wall time, the device time
+summed over kernels, the share of the wall during which some kernel ran
+(busy share, from the union of the kernel intervals), the number of kernel
+launches, and the kernels with the most device time. Needs a CUDA card;
+exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -73,11 +75,16 @@ def main() -> int:
         rec[0] += 1
         rec[1] += e.time_range.end - e.time_range.start
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[: args.top]
+    marks = [s["name"] for s in tracing.last_spans()]
+    route = ("resident" if "resident_pipeline" in marks else
+             "phased, fused FRI" if "fri_layers_fused" in marks else
+             "phased, host coin")
     device_us = sum(e - s for s, e in intervals)
     busy_us = _busy_us(intervals)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "trace_log2": args.log2,
+        "route": route,
         "wall_s": wall,
         "kernel_launches": len(kernels),
         "device_kernel_ms": device_us / 1000 if kernels else None,

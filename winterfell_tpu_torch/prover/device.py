@@ -16,17 +16,31 @@ through ``ops/goldilocks.py``:
   division (prover/src/composer/mod.rs:186-199) value for value;
 - FRI: per-layer transpose, hash, Merkle levels and fold.
 
-The Fiat–Shamir transcript stays in the host channel: only Merkle roots, OOD
-values, the remainder and the queried rows cross to the host. The proof bytes
-equal the host prover's (tests/test_torch_prover.py).
+Three routes, dispatched as winterfell_tpu/prover/device.py dispatches them
+(``prove``), all giving the host prover's proof bytes
+(tests/test_torch_prover.py):
 
-This is the phased pipeline of winterfell_tpu/prover/device.py (single trace
-segment, Rp64_256). Entry points run on the card unless the caller passes
+- **resident** (the default): steps 1-6 run on the device with the
+  Fiat–Shamir coin there too (``ops/device_coin.py``); between the trace
+  upload and the result pulls nothing is read back to the host. Taken for a
+  single-segment trace with at least one FRI layer, a remainder of at least
+  2 and an LDE of at most ``_RESIDENT_LIMIT_F64`` rows, unless
+  ``WINTER_RESIDENT=0``;
+- **phased + fused FRI**: the host coin between phases, then the whole FRI
+  commit phase with the coin on the device (``WINTER_RESIDENT=0``, or an
+  LDE above the resident limit);
+- **phased + host coin**: one host round trip per FRI layer
+  (``WINTER_FUSED_FRI=0`` as well, or no FRI layer).
+
+Grinding, query positions and the batched query gathers stay on the host
+in every route. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -34,12 +48,13 @@ import torch
 
 from ..air.air import EvaluationFrame
 from ..air.divisor import ConstraintDivisor
-from ..air.proof import FriProof, FriProofLayer, Proof, Queries
+from ..air.proof import FriProof, FriProofLayer, OodFrame, Proof, Queries
 from ..crypto.hashers import Rp64_256
 from ..crypto.merkle import MerkleTree
 from ..fri import FriOptions, fold_positions
 from ..math import ntt as host_ntt
 from ..math.fields import F64, Field
+from ..ops import device_coin as dc
 from ..ops import goldilocks as gl
 from ..ops.torch_ops import TorchOps
 from ..utils import tracing
@@ -48,14 +63,29 @@ from .channel import ProverChannel
 
 I64 = gl.I64
 
+# The JAX package's route switches and limits (winterfell_tpu/prover/
+# device.py:973-985), read from the same variables: WINTER_FUSED_FRI=0 forces
+# the per-layer host-coin FRI phase, WINTER_RESIDENT=0 the phased pipeline.
+_FUSED_FRI_ON = os.environ.get("WINTER_FUSED_FRI", "1") not in ("", "0")
+_RESIDENT_ON_F64 = os.environ.get("WINTER_RESIDENT", "1") not in ("", "0")
+_FRI_FUSE_LIMIT_F64 = 1 << 22
+_RESIDENT_LIMIT_F64 = 1 << 22
+# BatchingMethod -> device draw mode (air/src/options.rs:479-505)
+_BATCH_NAMES_F64 = {0: "linear", 1: "algebraic", 2: "horner"}
+
 
 def resolve_device(device) -> torch.device:
-    """torch.device for ``device``; raises when CUDA is asked for and absent
-    (an entry point never drops to the CPU on its own)."""
+    """torch.device for ``device``, a CUDA device with its index (tables are
+    cached per ``str(tensor.device)``, which always names it); raises when
+    CUDA is asked for and absent (an entry point never drops to the CPU on
+    its own)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                               "run on the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -130,12 +160,15 @@ class PrehashedMerkleTree(MerkleTree):
     only on the indexes), the digests are gathered into the shared query
     batch, and the real pass runs over the fetched bytes."""
 
-    def __init__(self, leaves: torch.Tensor, levels: List[torch.Tensor], hasher):
+    def __init__(self, leaves: torch.Tensor, levels: List[torch.Tensor], hasher,
+                 root: bytes = None):
         self.leaf_digests = leaves
         self.levels: Dict[int, torch.Tensor] = {l.shape[0]: l for l in levels}
         self.hasher = hasher
         self._n = leaves.shape[0]
-        self._root = _u64_rows(gl.to_u64(self.levels[1]))[0].tobytes()
+        if root is None:  # pull it now (callers that batch pulls pass it)
+            root = _u64_rows(gl.to_u64(self.levels[1]))[0].tobytes()
+        self._root = root
         self.leaves = _RecordingView(self._n)
         self.nodes = _RecordingView(self._n)
 
@@ -188,18 +221,6 @@ def _ext_tensor(values, device) -> torch.Tensor:
     return torch.from_numpy(arr.reshape(len(values), -1)).to(device)
 
 
-def _z_power_table(ext: Field, z: tuple, n: int, device):
-    """(n, d) table of z^k, built by log-doubling from host jumps z^(2^j)."""
-    d = ext.degree
-    cur = _ext_tensor([ext.one()], device)
-    acc = z
-    while cur.shape[0] < n:
-        jump = _ext_tensor([acc], device)
-        cur = torch.cat([cur, gl.ext_mul(cur, jump.expand(cur.shape[0], d))])
-        acc = ext.mul(acc, acc)
-    return cur[:n]
-
-
 def _eval_cols_pair(polys, pows2):
     """All column polynomials at z and z·g at once: polys (n, k) base or
     (n, k, d) ext, pows2 (n, 2, d) → (k, 2, d)."""
@@ -210,6 +231,18 @@ def _eval_cols_pair(polys, pows2):
             polys[:, :, None, :],
             pows2[:, None].expand(polys.shape[:2] + pows2.shape[1:]))
     return _gl_sum(prod)
+
+
+def _ood_pairs(main_polys, comp_columns, z, g_trace: int):
+    """OOD evaluations of every column at z and z·g for a (d,) device z:
+    (main (w, 2, d), composition (cols, 2, d)). The power tables are built
+    on the device from z (winterfell_tpu/prover/device.py:1551-1563)."""
+    n = main_polys.shape[0]
+    zg = gl.gl_mul(z, gl.const(g_trace))
+    pows2 = torch.stack([gl.ext_power_table(z, n),
+                         gl.ext_power_table(zg, n)], dim=1)
+    return (_eval_cols_pair(main_polys, pows2),
+            _eval_cols_pair(comp_columns, pows2))
 
 
 def _transition_divisor_inv(xs, n: int, exemptions):
@@ -270,6 +303,61 @@ def _fri_layer_commit(evaluations, n_fold: int):
     return transposed, leaves, gl.merkle_levels_rp64(leaves)
 
 
+def _fri_phase_body(deep_evals, seed, merge, draw, n_fold: int,
+                    n_layers: int, offset: int):
+    """The FRI commit phase with the coin on the device
+    (winterfell_tpu/prover/device.py:_fri_phase_body_f64): per layer
+    transpose, hash, Merkle levels, reseed with the root, draw α, fold; then
+    the remainder interpolation (fri/src/prover/mod.rs:179-239). Returns
+    ((transposed, leaves, levels) per layer, remainder coefficients, seed)."""
+    evaluations = deep_evals
+    outs = []
+    for _ in range(n_layers):
+        transposed, leaves, levels = _fri_layer_commit(evaluations, n_fold)
+        seed = merge(seed, levels[-1])
+        alpha, _ = draw(seed)
+        evaluations = gl.fri_fold(evaluations, n_fold, offset, alpha[0])
+        outs.append((transposed, leaves, levels))
+    rem = gl.ntt_interpolate_with_offset(evaluations, evaluations.shape[0],
+                                         offset)
+    return outs, rem, seed
+
+
+def _pull_small(tensors) -> List[np.ndarray]:
+    """Every small device result in ONE device-to-host copy, as numpy uint64
+    arrays of the tensors' shapes."""
+    flat = gl.to_u64(torch.cat([t.reshape(-1) for t in tensors]))
+    out, pos = [], 0
+    for t in tensors:
+        size = t.numel()
+        out.append(flat[pos : pos + size].reshape(tuple(t.shape)))
+        pos += size
+    return out
+
+
+def _ood_lists(pair: np.ndarray):
+    """(k, 2, d) uint64 OOD pair -> (values at z, values at z·g) as tuples."""
+    cur = [tuple(int(x) for x in row[0]) for row in pair]
+    nxt = [tuple(int(x) for x in row[1]) for row in pair]
+    return cur, nxt
+
+
+@contextlib.contextmanager
+def _sync_debug(device, mode):
+    """Runs the body under ``torch.cuda.set_sync_debug_mode(mode)`` on a CUDA
+    device (mode "error" turns every host synchronisation into an error);
+    does nothing for mode None or the CPU."""
+    if mode is None or device.type != "cuda":
+        yield
+        return
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
 def _deep_combine(comp_z, comp_gz, z_arr, zg_arr, xs):
     """comp_z/(x−z) + comp_gz/(x−z·g) with one paired extension inversion."""
     d = comp_z.shape[1]
@@ -288,7 +376,13 @@ def _deep_combine(comp_z, comp_gz, z_arr, zg_arr, xs):
 class GoldilocksProver(Prover):
     """Drop-in Prover for f64 AIRs with Rp64_256 commitments. Subclass or wrap
     an existing prover class via ``accelerate``; pass ``device=`` (default
-    "cuda") to choose where the pipeline runs."""
+    "cuda") to choose where the pipeline runs.
+
+    ``resident_sync_debug`` (None, "warn" or "error") runs the device part of
+    the resident route under ``torch.cuda.set_sync_debug_mode``: with
+    "error", any host synchronisation there raises (chip_smoke.py sets it)."""
+
+    resident_sync_debug = None
 
     def __init__(self, *args, device="cuda", **kwargs):
         super().__init__(*args, **kwargs)
@@ -320,8 +414,26 @@ class GoldilocksProver(Prover):
             "GoldilocksProver proves single-segment traces")
         channel = ProverChannel(air, air.pub_inputs_to_elements(), self.hasher)
         phases = tracing.Phases("device_prove")
-        dev = self.device
+        fri_opts = FriOptions(air.options.blowup_factor,
+                              air.options.fri_folding_factor,
+                              air.options.fri_remainder_max_degree)
+        lde_size = air.lde_domain_size
+        n_layers = fri_opts.num_fri_layers(lde_size)
+        rem_n = lde_size // fri_opts.folding_factor**n_layers
+        # the JAX package's dispatch (winterfell_tpu/prover/device.py:
+        # 1119-1130) for Rp64_256, one segment and no mesh
+        if (_RESIDENT_ON_F64 and n_layers > 0 and rem_n >= 2
+                and lde_size <= _RESIDENT_LIMIT_F64):
+            return self._prove_resident(air, trace, channel, phases, fri_opts,
+                                        n_layers, rem_n)
+        return self._prove_phased(air, trace, channel, phases, fri_opts,
+                                  n_layers, rem_n)
 
+    def _prove_phased(self, air, trace, channel, phases, fri_opts,
+                      n_layers: int, rem_n: int) -> Proof:
+        """Steps 1-6 with the host coin between phases; the FRI phase runs
+        fused with the coin on the device where the JAX package fuses it."""
+        dev = self.device
         ext = air.ext_field
         d = ext.degree
         n = air.trace_length
@@ -343,7 +455,11 @@ class GoldilocksProver(Prover):
 
         # 2 ----- constraint evaluation -------------------------------------
         ccs = channel.get_constraint_composition_coeffs()
-        ce_column = tracing.sync(self._evaluate_constraints(air, main_lde, ccs))
+        boundary = air.get_boundary_constraints(
+            None, list(range(air.context.num_assertions)))
+        ce_column = tracing.sync(self._evaluate_constraints(
+            air, main_lde, _ext_tensor(ccs.transition + ccs.boundary, dev),
+            boundary, self._seq_coeffs(air, boundary)))
         phases.mark("evaluate_constraints", ce_domain_size=ce)
 
         # 3 ----- composition commitment ------------------------------------
@@ -357,47 +473,193 @@ class GoldilocksProver(Prover):
         phases.mark("commit_to_constraint_evaluations")
 
         # 4 ----- OOD evaluations + DEEP ------------------------------------
-        z = channel.get_ood_point()
-        zg = ext.mul_base(z, F64.get_root_of_unity(n.bit_length() - 1))
-        pows2 = torch.stack([_z_power_table(ext, z, n, dev),
-                             _z_power_table(ext, zg, n, dev)], dim=1)
+        z = _ext_tensor([channel.get_ood_point()], dev)[0]
+        g_trace = F64.get_root_of_unity(n.bit_length() - 1)
+        main_pair, comp_pair = _ood_pairs(main_polys, comp_columns, z, g_trace)
         # both matrices' evaluations cross to the host in one copy
-        evals = gl.to_u64(torch.cat([_eval_cols_pair(main_polys, pows2),
-                                     _eval_cols_pair(comp_columns, pows2)]))
-
-        def cols(rows, k):
-            return [tuple(int(x) for x in row[k]) for row in rows]
-
-        trace_cur, trace_nxt = cols(evals[:w], 0), cols(evals[:w], 1)
-        quot_cur, quot_nxt = cols(evals[w:], 0), cols(evals[w:], 1)
+        main_np, comp_np = _pull_small([main_pair, comp_pair])
+        trace_cur, trace_nxt = _ood_lists(main_np)
+        quot_cur, quot_nxt = _ood_lists(comp_np)
         channel.send_ood_evaluations(trace_cur, trace_nxt, quot_cur, quot_nxt)
         phases.mark("ood_evaluations")
         deep_ccs = channel.get_deep_composition_coeffs()
-
         deep_evaluations = tracing.sync(self._deep_evaluations(
-            air, ext, main_lde, comp_lde, z, zg, trace_cur, trace_nxt,
-            quot_cur, quot_nxt, deep_ccs))  # (lde, d)
+            air, main_lde, comp_lde, z, g_trace, main_pair, comp_pair,
+            _ext_tensor(deep_ccs.trace + deep_ccs.constraints, dev)))
         phases.mark("build_deep_composition_poly")
 
         # 6 ----- FRI layers -------------------------------------------------
-        fri_options = FriOptions(blowup, air.options.fri_folding_factor,
-                                 air.options.fri_remainder_max_degree)
-        n_fold = fri_options.folding_factor
-        n_layers = fri_options.num_fri_layers(lde_size)
-        rem_n = lde_size // n_fold**n_layers
+        n_fold = fri_opts.folding_factor
         fri_layers = []  # (tree, transposed (rows, N, d))
-        evaluations = deep_evaluations
-        for _ in range(n_layers):
-            transposed, leaves, levels = _fri_layer_commit(evaluations, n_fold)
-            tree = PrehashedMerkleTree(leaves, levels, self.hasher)
-            channel.commit_fri_layer(tree.root)
-            alpha = _ext_tensor([channel.draw_fri_alpha()], dev)[0]
-            evaluations = gl.fri_fold(evaluations, n_fold, offset, alpha)
-            fri_layers.append((tree, transposed))
-        rem_coeffs = gl.ntt_interpolate_with_offset(evaluations, rem_n, offset)
+        if (_FUSED_FRI_ON and n_layers > 0 and rem_n >= 2
+                and lde_size <= _FRI_FUSE_LIMIT_F64):
+            # the whole commit phase with the coin on the device; the roots
+            # and the seed cross to the host in one copy at its end
+            merge, draw = dc.coin_bundle("rp64_256", d, "f64")
+            outs, rem_coeffs, seed = _fri_phase_body(
+                deep_evaluations, dc.seed_tensor(channel.public_coin.seed, dev),
+                merge, draw, n_fold, n_layers, offset)
+            pulled = _pull_small([lv[-1] for _, _, lv in outs] + [seed])
+            for (transposed, leaves, levels), root in zip(outs, pulled):
+                tree = PrehashedMerkleTree(leaves, levels, self.hasher,
+                                           _u64_rows(root)[0].tobytes())
+                channel.commitments.raw += tree.root  # reseeded on the device
+                fri_layers.append((tree, transposed))
+            channel.public_coin.seed = dc.u64_to_seed(pulled[-1])
+            channel.public_coin.counter = 0
+            phases.mark("fri_layers_fused", num_layers=n_layers)
+        else:
+            evaluations = deep_evaluations
+            for _ in range(n_layers):
+                transposed, leaves, levels = _fri_layer_commit(evaluations,
+                                                               n_fold)
+                tree = PrehashedMerkleTree(leaves, levels, self.hasher)
+                channel.commit_fri_layer(tree.root)
+                alpha = _ext_tensor([channel.draw_fri_alpha()], dev)[0]
+                evaluations = gl.fri_fold(evaluations, n_fold, offset, alpha)
+                fri_layers.append((tree, transposed))
+            rem_coeffs = gl.ntt_interpolate_with_offset(evaluations, rem_n,
+                                                        offset)
         return self._finish_proof(air, channel, phases, rem_n, rem_coeffs,
                                   fri_layers, main_tree, main_lde, comp_tree,
                                   comp_lde)
+
+    # ------------------------------------------------------------------
+    # whole-proof resident route (winterfell_tpu/prover/device.py:1382-1626)
+    # ------------------------------------------------------------------
+
+    def _prove_resident(self, air, trace, channel, phases, fri_opts,
+                        n_layers: int, rem_n: int) -> Proof:
+        """Steps 1-6 (trace commit, coefficient draws, constraint
+        evaluation, composition commit, OOD, DEEP, every FRI layer) on the
+        device with the Fiat–Shamir coin there too. The host uploads the
+        trace and the per-proof constants, then pulls the results in one
+        copy and resumes the channel exactly where the phased route would
+        stand: roots appended to the commitments, the OOD frame set, the
+        seed taken from the device, the counter at 0."""
+        ext = air.ext_field
+        dev = self.device
+        main_dev = tracing.sync(self._upload_trace(trace))
+        phases.mark("commit_main_upload")
+
+        boundary = air.get_boundary_constraints(
+            None, list(range(air.context.num_assertions)))
+        seq = self._resident_consts(air, boundary, fri_opts, n_layers)
+        seed0 = dc.seed_tensor(channel.public_coin.seed, dev)
+        with _sync_debug(dev, self.resident_sync_debug):
+            (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
+             main_pair, comp_pair, fri_outs, rem_coeffs, seed) = \
+                self._resident_run(air, boundary, seq, main_dev, seed0,
+                                   fri_opts.folding_factor, n_layers)
+
+        pulled = _pull_small([m_levels[-1], c_levels[-1]]
+                             + [lv[-1] for _, _, lv in fri_outs]
+                             + [main_pair, comp_pair, seed])
+        roots = [_u64_rows(r)[0].tobytes() for r in pulled[: 2 + n_layers]]
+        main_tree = PrehashedMerkleTree(m_leaves, m_levels, self.hasher,
+                                        roots[0])
+        channel.commitments.raw += main_tree.root  # reseeds ran on device
+        comp_tree = PrehashedMerkleTree(c_leaves, c_levels, self.hasher,
+                                        roots[1])
+        channel.commitments.raw += comp_tree.root
+        trace_cur, trace_nxt = _ood_lists(pulled[2 + n_layers])
+        quot_cur, quot_nxt = _ood_lists(pulled[3 + n_layers])
+        channel.ood_frame = OodFrame.new(ext, trace_cur, trace_nxt, quot_cur,
+                                         quot_nxt)
+        fri_layers = []
+        for (transposed, leaves, levels), root in zip(fri_outs, roots[2:]):
+            tree = PrehashedMerkleTree(leaves, levels, self.hasher, root)
+            channel.commitments.raw += tree.root
+            fri_layers.append((tree, transposed))
+        channel.public_coin.seed = dc.u64_to_seed(pulled[-1])
+        channel.public_coin.counter = 0
+        phases.mark("resident_pipeline", lde_domain_size=air.lde_domain_size)
+        return self._finish_proof(air, channel, phases, rem_n, rem_coeffs,
+                                  fri_layers, main_tree, main_lde, comp_tree,
+                                  comp_lde)
+
+    def _resident_consts(self, air, boundary, fri_opts, n_layers: int):
+        """Builds, before the device run, every table the run reads that
+        needs a host-to-device copy or is fixed per proof shape (as the JAX
+        make_consts does, device.py:1589-1620): the NTT plans, the offset
+        powers, the CE and DEEP domain constants, the FRI inverse offset
+        powers, the Frobenius and Rescue tables; returns the per-proof
+        sequence-assertion coefficients (boundary values)."""
+        from ..ops import rescue
+
+        dev = self.device
+        n = air.trace_length
+        lde_size = air.lde_domain_size
+        ce = air.context.ce_domain_size
+        offset = air.domain_offset
+        n_fold = fri_opts.folding_factor
+        rem_n = lde_size // n_fold**n_layers
+        for size, inverse in ((n, True), (lde_size, False), (ce, True),
+                              (ce, False), (n_fold, True), (rem_n, True)):
+            gl.ntt_plan(size, inverse, dev)
+        gl.lde_offset_powers(n, offset, dev)
+        gl.interp_offset_powers(ce, offset, dev)
+        gl.interp_offset_powers(rem_n, offset, dev)
+        for i in range(n_layers):
+            gl.fri_inv_offset_powers(lde_size // n_fold**i, n_fold, offset,
+                                     dev)
+        if air.ext_field.degree == 3:
+            gl.frobenius_table(3, dev)
+        rescue._table("ark", dev)
+        self._ce_consts(air, boundary)
+        self._lde_xs(air)
+        return self._seq_coeffs(air, boundary)
+
+    def _resident_run(self, air, boundary, seq, main_dev, seed0, n_fold: int,
+                      n_layers: int):
+        """The device part of the resident route: only launches, no host
+        read (winterfell_tpu/prover/device.py:1522-1585)."""
+        d = air.ext_field.degree
+        n = air.trace_length
+        w = air.trace_info.width
+        blowup = air.options.blowup_factor
+        offset = air.domain_offset
+        ce = air.context.ce_domain_size
+        part = air.options.partition_options
+        num_cols = air.context.num_constraint_composition_columns()
+        n_t = air.context.num_transition_constraints
+        n_b = air.context.num_assertions
+        merge, draw = dc.coin_bundle("rp64_256", d, "f64")
+        draw_k = dc.make_draw_k(draw)
+        method_c = _BATCH_NAMES_F64[int(air.options.batching_constraints)]
+        method_d = _BATCH_NAMES_F64[int(air.options.batching_deep)]
+
+        # 1 -- trace commit
+        main_polys, main_lde, m_leaves, m_levels = _commit_pipeline(
+            main_dev, n, offset, blowup, part.partition_size(w, 1))
+        seed = merge(seed0, m_levels[-1])
+        # 2 -- constraint composition coefficients, constraint evaluation
+        ccs_all, _ = draw_k(seed, n_t + n_b, method_c)
+        ce_column = self._evaluate_constraints(air, main_lde, ccs_all,
+                                               boundary, seq)
+        # 3 -- composition commitment
+        comp_columns, comp_lde, c_leaves, c_levels = _comp_commit_pipeline(
+            ce_column, ce, n, offset, blowup, num_cols,
+            part.partition_size(num_cols, d) * d)
+        del ce_column
+        seed = merge(seed, c_levels[-1])
+        # 4 -- OOD point, evaluations, reseed with their hash
+        z_row, _ = draw(seed)
+        z = z_row[0]
+        g_trace = F64.get_root_of_unity(n.bit_length() - 1)
+        main_pair, comp_pair = _ood_pairs(main_polys, comp_columns, z, g_trace)
+        merged = torch.cat([main_pair[:, 0], comp_pair[:, 0],
+                            main_pair[:, 1], comp_pair[:, 1]])
+        seed = merge(seed, gl.rp64_hash_rows(merged.reshape(1, -1))[0])
+        # 5 -- DEEP composition, 6 -- FRI layers
+        deep_all, _ = draw_k(seed, w + num_cols, method_d)
+        deep_evals = self._deep_evaluations(air, main_lde, comp_lde, z,
+                                            g_trace, main_pair, comp_pair,
+                                            deep_all)
+        fri_outs, rem_coeffs, seed = _fri_phase_body(
+            deep_evals, seed, merge, draw, n_fold, n_layers, offset)
+        return (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
+                main_pair, comp_pair, fri_outs, rem_coeffs, seed)
 
     def _finish_proof(self, air, channel, phases, rem_n: int, rem_coeffs,
                       fri_layers, main_tree, main_lde, comp_tree,
@@ -462,19 +724,23 @@ class GoldilocksProver(Prover):
 
     # ------------------------------------------------------------------
 
-    def _evaluate_constraints(self, air, main_lde, ccs):
-        """Tensor mirror of prover/evaluator.py over the whole CE domain."""
+    def _evaluate_constraints(self, air, main_lde, ccs_all, boundary, seq):
+        """Tensor mirror of prover/evaluator.py over the whole CE domain.
+        ``ccs_all`` (n_t + n_b, d) holds the composition coefficients on the
+        device (transition first); ``boundary`` was built with each
+        constraint's ``cc`` the index of its coefficient among the boundary
+        ones; ``seq`` holds each group's sequence coefficients
+        (``_seq_coeffs``)."""
         dev = self.device
         d = air.ext_field.degree
         ce_blowup = air.ce_blowup_factor
         stride = air.options.blowup_factor // ce_blowup
+        n_t = air.context.num_transition_constraints
 
         main_ce = main_lde[::stride]
         main_ce_next = torch.roll(main_ce, -ce_blowup, dims=0)
-        boundary = air.get_boundary_constraints(None, ccs.boundary)
-        t_ccs = _ext_tensor(ccs.transition, dev)
-        consts = self._ce_consts(air, boundary)
-        t_div_inv, group_consts, periodic, ce = consts
+        t_ccs, b_ccs = ccs_all[:n_t], ccs_all[n_t:]
+        t_div_inv, group_consts, periodic, ce = self._ce_consts(air, boundary)
 
         frame = EvaluationFrame(
             [main_ce[:, c : c + 1] for c in range(main_ce.shape[1])],
@@ -486,30 +752,43 @@ class GoldilocksProver(Prover):
             combined = gl.ext_add(combined, gl.gl_mul(ev, t_ccs[i][None, :]))
         result = gl.ext_mul_base(combined, t_div_inv)
 
-        for g, (div_inv, scales) in zip(boundary.main_groups, group_consts):
+        for g, (div_inv, scales), q in zip(boundary.main_groups, group_consts,
+                                           seq):
             numer = torch.zeros((ce, d), dtype=I64, device=dev)
             singles = [c for c in g.constraints if len(c.poly) == 1]
             seqs = [c for c in g.constraints if len(c.poly) > 1]
             for c in singles:
                 diff = gl.gl_sub(main_ce[:, c.column], gl.const(c.poly[0][0]))
-                numer = gl.ext_add(numer, gl.gl_mul(
-                    diff[:, None], _ext_tensor([c.cc], dev)))
+                numer = gl.ext_add(numer, gl.gl_mul(diff[:, None],
+                                                    b_ccs[c.cc][None, :]))
             if seqs:
-                # batched sequence value polys: zero-pad the (L, k) coefficient
-                # block to the CE size, scale each column by its
+                # batched sequence value polys: the zero-padded (ce, k)
+                # coefficient block, each column scaled by its
                 # (offset·poly_offset)^i series, one NTT
-                L = len(seqs[0].poly)
-                q = np.zeros((ce, len(seqs)), dtype=np.int64)
-                for j, c in enumerate(seqs):
-                    q[:L, j] = [gl.const(v[0]) for v in c.poly]
-                scaled = gl.gl_mul(torch.from_numpy(q).to(dev), scales)
-                b_vals = gl.ntt_evaluate(scaled, ce)
+                b_vals = gl.ntt_evaluate(gl.gl_mul(q, scales), ce)
                 for j, c in enumerate(seqs):
                     diff = gl.gl_sub(main_ce[:, c.column], b_vals[:, j])
                     numer = gl.ext_add(numer, gl.gl_mul(
-                        diff[:, None], _ext_tensor([c.cc], dev)))
+                        diff[:, None], b_ccs[c.cc][None, :]))
             result = gl.ext_add(result, gl.ext_mul_base(numer, div_inv))
         return result
+
+    def _seq_coeffs(self, air, boundary):
+        """Per main boundary group, its sequence assertions' value-polynomial
+        coefficients as a zero-padded (ce, k) device tensor (None without
+        sequences): per-proof values, copied to the device before the run."""
+        ce = air.context.ce_domain_size
+        out = []
+        for g in boundary.main_groups:
+            seqs = [c for c in g.constraints if len(c.poly) > 1]
+            if not seqs:
+                out.append(None)
+                continue
+            q = np.zeros((ce, len(seqs)), dtype=np.int64)
+            for j, c in enumerate(seqs):
+                q[: len(c.poly), j] = [gl.const(v[0]) for v in c.poly]
+            out.append(torch.from_numpy(q).to(self.device))
+        return out
 
     def _ce_consts(self, air, boundary):
         """Per-structure CE-domain constants (divisor inverses, sequence
@@ -552,33 +831,40 @@ class GoldilocksProver(Prover):
         cache[key] = (t_div_inv, group_consts, periodic, ce)
         return cache[key]
 
-    def _deep_evaluations(self, air, ext, main_lde, comp_lde, z, zg,
-                          trace_cur, trace_nxt, quot_cur, quot_nxt, deep_ccs):
-        """DEEP over the LDE domain: C_z(x)/(x−z) + C_gz(x)/(x−z·g)."""
+    def _lde_xs(self, air):
+        """The LDE domain offset·h^i on the device (built once per size)."""
         dev = self.device
-        d = ext.degree
-        lde_size = main_lde.shape[0]
+        lde_size = air.lde_domain_size
         h = F64.get_root_of_unity(lde_size.bit_length() - 1)
-        xs = gl._cached(("pows", h, lde_size, air.domain_offset, str(dev)),
-                        lambda: gl.power_series(h, lde_size, dev,
-                                                air.domain_offset))
+        return gl._cached(("pows", h, lde_size, air.domain_offset, str(dev)),
+                          lambda: gl.power_series(h, lde_size, dev,
+                                                  air.domain_offset))
+
+    def _deep_evaluations(self, air, main_lde, comp_lde, z, g_trace: int,
+                          main_pair, comp_pair, deep_ccs):
+        """DEEP over the LDE domain: C_z(x)/(x−z) + C_gz(x)/(x−z·g), with z,
+        the OOD pairs and the coefficients ((w + cols, d), trace first) on
+        the device."""
+        dev = self.device
+        d = air.ext_field.degree
+        lde_size = main_lde.shape[0]
+        xs = self._lde_xs(air)
         # adjusted OOD constants: cc_i · T_i(z), cc_i · T_i(z·g)
-        all_ccs = list(deep_ccs.trace) + list(deep_ccs.constraints)
-        cc_arr = _ext_tensor(all_ccs, dev)
-        adj_z = _ext_tensor([ext.mul(v, c) for v, c in
-                             zip(trace_cur + quot_cur, all_ccs)], dev)
-        adj_gz = _ext_tensor([ext.mul(v, c) for v, c in
-                              zip(trace_nxt + quot_nxt, all_ccs)], dev)
+        adj_z = gl.ext_mul(torch.cat([main_pair[:, 0], comp_pair[:, 0]]),
+                           deep_ccs)
+        adj_gz = gl.ext_mul(torch.cat([main_pair[:, 1], comp_pair[:, 1]]),
+                            deep_ccs)
 
         comp_z = torch.zeros((lde_size, d), dtype=I64, device=dev)
         comp_gz = torch.zeros((lde_size, d), dtype=I64, device=dev)
-        terms = [gl.gl_mul(main_lde[:, c : c + 1], cc_arr[c][None, :])
+        terms = [gl.gl_mul(main_lde[:, c : c + 1], deep_ccs[c][None, :])
                  for c in range(main_lde.shape[1])]
         w = len(terms)
-        terms += [gl.ext_mul(comp_lde[:, j], cc_arr[w + j].expand(lde_size, d))
+        terms += [gl.ext_mul(comp_lde[:, j],
+                             deep_ccs[w + j].expand(lde_size, d))
                   for j in range(comp_lde.shape[1])]
         for idx, term in enumerate(terms):
             comp_z = gl.ext_add(comp_z, gl.ext_sub(term, adj_z[idx]))
             comp_gz = gl.ext_add(comp_gz, gl.ext_sub(term, adj_gz[idx]))
-        return _deep_combine(comp_z, comp_gz, _ext_tensor([z], dev),
-                             _ext_tensor([zg], dev), xs)
+        zg = gl.gl_mul(z, gl.const(g_trace))
+        return _deep_combine(comp_z, comp_gz, z[None], zg[None], xs)
