@@ -166,9 +166,15 @@ def _bound_merge(m: int):
     return _bound(m * IMAD_PER_PERM, m * 96)
 
 
-def _bound_mul(n: int):
-    """K3 on n elements: 16 bytes read and 8 written, 8 IMADs each."""
-    return _bound(n * IMAD_PER_MUL, n * 24)
+def _bound_mul(x, y):
+    """K3 on x·y (y a tensor that broadcasts against x, or an int): 8 IMADs
+    per product; each element of the operands read once (a broadcast
+    operand's own elements, not the broadcast ones; an int is no read) and
+    each product written once, 8 bytes each."""
+    y_shape, y_numel = ((y.shape, y.numel()) if isinstance(y, torch.Tensor)
+                        else ((), 0))
+    n = torch.broadcast_shapes(x.shape, y_shape).numel()
+    return _bound(n * IMAD_PER_MUL, (x.numel() + y_numel + n) * 8)
 
 
 def _bound_permute(m: int):
@@ -182,6 +188,26 @@ def _bound_draw(k: int, d: int):
     nothing): it reads the seed and k digests and writes k·d elements and
     the counter."""
     return _bound(0, 32 + k * 32 + k * d * 8 + 8)
+
+
+def _check_syncs(prover, on: bool) -> None:
+    """With on, the prover's resident device run (_resident_run) runs under
+    torch.cuda.set_sync_debug_mode("error"): any host synchronisation there
+    raises. With on False, the class's own method again."""
+    prover.__dict__.pop("_resident_run", None)
+    if not on:
+        return
+    run = prover._resident_run
+
+    def checked(*args, **kwargs):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+    prover._resident_run = checked
 
 
 def _launches():
@@ -317,6 +343,10 @@ def main() -> int:
                ("butterfly", blk[:, 1], tw), ("scan", scan[..., 5:],
                                                scan[..., :-5]),
                ("component", ext[..., 1], ext[..., 2])]
+    # eight dims that no neighbour can merge with: the kernel's most
+    deep = _rng_field(rng, (2, 3, 2, 3, 2, 3, 2, 2), dev).permute(
+        *range(7, -1, -1))
+    layouts.append(("8 dims", deep, deep[..., :1]))
     for name, x, y in layouts:
         check("gl_mul", k3(x, y), field_kernels.gl_mul_plain(x, y),
               (name, tuple(x.shape)))
@@ -386,7 +416,7 @@ def main() -> int:
         mark = routed(route == "resident")
         prover = Prover(options, Rp64_256, device=dev)
         # any host synchronisation inside the resident device run raises
-        prover.resident_sync_debug = None if REHEARSAL else "error"
+        _check_syncs(prover, not REHEARSAL)
         tracing.set_phase_sync(True)
         warm = prover.prove(trace)
         verify(FibSmallAir, warm, result, Rp64_256)
@@ -419,7 +449,7 @@ def main() -> int:
         unchecked = []
         if route == "resident":
             # three more with the sync check off: what the check costs
-            prover.resident_sync_debug = None
+            _check_syncs(prover, False)
             for _ in range(3):
                 t = time.perf_counter()
                 if prover.prove(trace).to_bytes() != warm_bytes:
@@ -427,7 +457,7 @@ def main() -> int:
                 if not REHEARSAL:
                     torch.cuda.synchronize()
                 unchecked.append(time.perf_counter() - t)
-            prover.resident_sync_debug = None if REHEARSAL else "error"
+            _check_syncs(prover, not REHEARSAL)
         # one more prove, untimed, with a barrier at every phase mark: its
         # marks are then the card's time per phase
         tracing.set_phase_sync(True)
@@ -487,7 +517,7 @@ def main() -> int:
     def mul_entry(x, y, shape):
         return entry(shape, lambda: k3(x, y),
                      lambda: field_kernels.gl_mul_plain(x, y),
-                     _bound_mul(int(np.prod(shape))))
+                     _bound_mul(x, y))
 
     def permute_entry(m):
         st = _rng_field(rng, (m, 12), dev)

@@ -144,7 +144,7 @@ def test_zero_dim_and_empty_operands():
     assert gl.gl_mul(e, 5).shape == (0, 3)
 
 
-def test_layouts_the_kernel_cannot_take_raise():
+def test_layouts_the_kernel_cannot_take_raise(monkeypatch):
     a = torch.zeros((4, 3), dtype=torch.int64)
     with pytest.raises(TypeError):
         gl.gl_mul(a.to(torch.int32), a)
@@ -158,6 +158,20 @@ def test_layouts_the_kernel_cannot_take_raise():
     deep = torch.zeros((2,) * 9, dtype=torch.int64).permute(*range(8, -1, -1))
     with pytest.raises(ValueError, match="at most 8"):
         gl.gl_mul(deep, deep)
+
+    # the kernel's offsets are 32-bit: a product of 2^31 elements is refused
+    # (a broadcast, so nothing that size is allocated), and so is an operand
+    # whose strides reach past the limit (shown against a lowered limit: the
+    # real one needs a 16 GiB tensor)
+    with pytest.raises(ValueError, match="elements 2147483648"):
+        gl.gl_mul(a[:1, :1].expand(2, 2**30), 3)
+    x = torch.zeros((64, 100), dtype=torch.int64)
+    monkeypatch.setattr(fk, "INDEX_LIMIT", 1000)
+    assert fk.mul_layout(x[:10, :5], x[:10, 5:10]).numel == 50  # reach 905
+    with pytest.raises(ValueError, match="a's extent 1001"):
+        gl.gl_mul(x[:11, :1], 3)
+    with pytest.raises(ValueError, match="b's extent 1805"):
+        gl.gl_mul(x[:10, :5], x[::2, 5:10][:10])
 
 
 def test_kernel_on_cpu_tensors_raises_instead_of_falling_back():

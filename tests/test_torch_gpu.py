@@ -74,6 +74,10 @@ def test_gl_mul_kernel_reads_broadcast_strided_and_int_operands(cuda):
              (y[..., 9:], y[..., :-9]), (x[..., 2], x[..., 0]),
              (x, x[0, 0, 0]), (y, 2**64 - 1), (y, gl.const(3)),
              (y[:, 5], y[:, 6])]
+    # eight dims that no neighbour can merge with: the kernel's most
+    deep = _rand(9, (2, 3, 2, 3, 2, 3, 2, 2), cuda, 2**64).permute(
+        *range(7, -1, -1))
+    cases.append((deep, deep[..., :1]))
     for a, b in cases:
         assert torch.equal(field_kernels.gl_mul_kernel(a, b),
                            field_kernels.gl_mul_plain(a, b))
@@ -106,12 +110,25 @@ def test_resident_and_phased_card_proofs_equal_cpu_proof(cuda, monkeypatch):
     prover_cls = GoldilocksProver.accelerate(tfib.FibSmallProver)
     cpu = prover_cls(opts, Rp64_256, device="cpu").prove(
         tfib.build_fib_trace(F64, 2048))
+    checked_runs = []
     for resident in (True, False):
         monkeypatch.setattr(prover_device, "_RESIDENT_ON_F64", resident)
         prover = prover_cls(opts, Rp64_256)
-        prover.resident_sync_debug = "error"
+        run = prover._resident_run
+
+        def checked(*args, **kwargs):
+            checked_runs.append(resident)
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return run(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+        prover._resident_run = checked
         card = prover.prove(tfib.build_fib_trace(F64, 2048, device=cuda))
         assert card.to_bytes() == cpu.to_bytes(), resident
+    assert checked_runs == [True]
 
 
 def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):

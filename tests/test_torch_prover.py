@@ -65,24 +65,45 @@ def _prove_on_routes(prover, trace_fn, monkeypatch, routes=ROUTES):
     return out
 
 
+# the case that also pins the host-coin route (it differs from the fused
+# route only in the FRI phase) and bench_fib's options (no FRI layer)
+_FULL_CASE = (3, "CUBIC")
+
+
 @pytest.mark.parametrize("log_n,ext_name", [(3, "CUBIC"), (5, "CUBIC"),
                                             (4, "NONE"), (4, "QUADRATIC")])
 def test_port_proof_bytes_equal_jax_host_proof(log_n, ext_name, monkeypatch):
     """Each route's bytes equal the JAX host prover's (computed once for
-    the three), and each verifier accepts the other package's proof."""
+    the routes), and each verifier accepts the other package's proof. One
+    case also runs the host-coin route, and bench_fib's remainder degree 31,
+    where the trace has no FRI layer: every switch setting then takes the
+    phased route with an empty fold loop, as the JAX package does."""
     seq = 2 << log_n
+    full = (log_n, ext_name) == _FULL_CASE
+    routes = ROUTES if full else ("resident", "fused")
     ref = FibSmallProver(_options(_JaxOpts, ext_name), Rp64_256).prove(
         build_fib_trace(F64, seq)).to_bytes()
     prover = PortProver(_options(wt, ext_name), wt.Rp64_256, device="cpu")
     by_route = _prove_on_routes(
-        prover, lambda: tfib.build_fib_trace(wt.F64, seq), monkeypatch)
-    assert by_route == {route: ref for route in ROUTES}
+        prover, lambda: tfib.build_fib_trace(wt.F64, seq), monkeypatch,
+        routes)
+    assert by_route == {route: ref for route in routes}
 
     result = compute_fib_term(F64, seq)
     assert tfib.compute_fib_term(wt.F64, seq) == result
     wt.verify(tfib.FibSmallAir, wt.Proof.from_bytes(ref), result, wt.Rp64_256)
     verify(FibSmallAir, Proof.from_bytes(by_route["resident"]), result,
            Rp64_256)
+    if full:
+        ref = FibSmallProver(_options(_JaxOpts, ext_name, 8, 31),
+                             Rp64_256).prove(build_fib_trace(F64, seq))
+        monkeypatch.setattr(port_device, "_RESIDENT_ON_F64", True)
+        monkeypatch.setattr(port_device, "_FUSED_FRI_ON", True)
+        port = PortProver(_options(wt, ext_name, 8, 31), wt.Rp64_256,
+                          device="cpu").prove(tfib.build_fib_trace(wt.F64,
+                                                                   seq))
+        assert _route_taken() == "host"
+        assert port.to_bytes() == ref.to_bytes()
 
 
 @pytest.mark.parametrize("batching,partitions", [("LINEAR", 2),
@@ -249,5 +270,6 @@ def test_port_sequence_assertions_equal_jax_host_proof(monkeypatch):
     prover = GoldilocksProver.accelerate(_PortSeqFibProver)(
         _options(wt, "CUBIC"), wt.Rp64_256, device="cpu")
     by_route = _prove_on_routes(
-        prover, lambda: tfib.build_fib_trace(wt.F64, 64), monkeypatch)
-    assert by_route == {route: ref for route in ROUTES}
+        prover, lambda: tfib.build_fib_trace(wt.F64, 64), monkeypatch,
+        ("resident", "fused"))
+    assert by_route == {"resident": ref, "fused": ref}

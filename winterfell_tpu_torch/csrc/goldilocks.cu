@@ -8,14 +8,16 @@
 // 2^64 ≡ 2^32 - 1 and 2^96 ≡ -1 (mod p). The result is canonical and exact
 // for every pair of u64 bit patterns, inputs >= p included.
 //
-// Bound on this card: bytes. An element reads 16 bytes and writes 8, against
-// 8 32-bit integer multiply-adds (one 64×64→128 product; the product by
-// 2^32 - 1 is a shift and a subtract): at 3.35 TB/s and 16.7 T IMAD/s the
-// bytes take about 15 times as long. The design does what a memory-bound
-// elementwise kernel needs and no more: a grid-stride loop with neighbouring
-// threads on neighbouring elements, a fast path for contiguous operands and
-// for one scalar operand, and a strided path that reads broadcast and
-// strided views in place (no copy to make them contiguous).
+// Bound on this card: bytes. An element of a contiguous product reads 16
+// bytes and writes 8, against 8 32-bit integer multiply-adds (one 64×64→128
+// product; the product by 2^32 - 1 is a shift and a subtract): at 3.35 TB/s
+// and 16.7 T IMAD/s the bytes take about 15 times as long. One grid-stride
+// kernel with neighbouring threads on neighbouring output elements takes
+// every layout the wrapper passes: contiguous operands, broadcast dims
+// (stride 0) and strided views, read in place, and a scalar for b. Offsets
+// are 32-bit (the wrapper refuses layouts that reach 2^31 elements); the
+// outermost coordinate needs no division, so a contiguous product (one dim
+// after the wrapper merges dims) does none.
 //
 // Built with nvcc into a plain-C shared library (see ops/_build.py); the
 // wrapper in ops/field_kernels.py passes device pointers, the coalesced
@@ -54,52 +56,38 @@ __device__ __forceinline__ uint64_t mul(uint64_t a, uint64_t b) {
 }
 
 struct Layout {
-  int64_t size[MAX_DIMS];  // outermost first
-  int64_t sa[MAX_DIMS];    // element strides of a
-  int64_t sb[MAX_DIMS];    // element strides of b (0 where broadcast)
+  uint32_t size[MAX_DIMS];  // outermost first
+  uint32_t sa[MAX_DIMS];    // element strides of a
+  uint32_t sb[MAX_DIMS];    // element strides of b (0 where broadcast)
   int ndim;
 };
 
-// Both operands contiguous (B_SCALAR = false), or a contiguous and b one
-// value for every element (B_SCALAR = true).
+// Any strides, broadcast dims at stride 0; b_value for every element when
+// B_SCALAR. The output is contiguous in the broadcast shape; each element's
+// coordinates come from its linear index, the outermost without a division.
 template <bool B_SCALAR>
 __global__ void __launch_bounds__(BLOCK)
-gl_mul_contig_kernel(const uint64_t* __restrict__ a,
-                     const uint64_t* __restrict__ b, uint64_t b_value,
-                     uint64_t* __restrict__ out, int64_t n) {
-  const int64_t step = static_cast<int64_t>(gridDim.x) * BLOCK;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
-       i < n; i += step)
-    out[i] = mul(__ldg(a + i), B_SCALAR ? b_value : __ldg(b + i));
-}
-
-// Any strides, broadcast dims at stride 0. The output is contiguous in the
-// broadcast shape; each element's coordinates come from its linear index.
-// I is the index type: 32-bit where every offset fits, as division is
-// several times cheaper there.
-template <typename I, bool B_SCALAR>
-__global__ void __launch_bounds__(BLOCK)
-gl_mul_strided_kernel(const uint64_t* __restrict__ a,
-                      const uint64_t* __restrict__ b, uint64_t b_value,
-                      uint64_t* __restrict__ out, int64_t n, Layout L) {
-  const int64_t step = static_cast<int64_t>(gridDim.x) * BLOCK;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
-       i < n; i += step) {
-    I rest = static_cast<I>(i), oa = 0, ob = 0;
-    for (int d = L.ndim - 1; d >= 0; --d) {
-      const I sz = static_cast<I>(L.size[d]);
-      const I c = rest % sz;
-      rest /= sz;
-      oa += c * static_cast<I>(L.sa[d]);
-      ob += c * static_cast<I>(L.sb[d]);
+gl_mul_kernel(const uint64_t* __restrict__ a, const uint64_t* __restrict__ b,
+              uint64_t b_value, uint64_t* __restrict__ out, uint32_t n,
+              Layout L) {
+  const uint32_t step = gridDim.x * BLOCK;
+  for (uint32_t i = blockIdx.x * BLOCK + threadIdx.x; i < n; i += step) {
+    uint32_t rest = i, oa = 0, ob = 0;
+    // unrolled, so every field of L is read at a fixed index: a run-time
+    // index puts L on the stack (local memory), about 3x slower
+#pragma unroll
+    for (int d = MAX_DIMS - 1; d > 0; --d) {
+      if (d < L.ndim) {
+        const uint32_t c = rest % L.size[d];
+        rest /= L.size[d];
+        oa += c * L.sa[d];
+        ob += c * L.sb[d];
+      }
     }
+    oa += rest * L.sa[0];
+    ob += rest * L.sb[0];
     out[i] = mul(__ldg(a + oa), B_SCALAR ? b_value : __ldg(b + ob));
   }
-}
-
-inline unsigned int grid_for(int64_t n) {
-  const int64_t blocks = (n + BLOCK - 1) / BLOCK;
-  return static_cast<unsigned int>(blocks < MAX_GRID ? blocks : MAX_GRID);
 }
 
 // The largest element offset the layout reaches, plus one.
@@ -109,26 +97,6 @@ inline int64_t extent(const int64_t* size, const int64_t* stride, int ndim) {
   return e;
 }
 
-template <bool B_SCALAR>
-void launch(const uint64_t* a, const uint64_t* b, uint64_t b_value,
-            uint64_t* out, int64_t n, const Layout& L, cudaStream_t stream) {
-  const bool contig = L.ndim == 1 && L.sa[0] == 1 && (B_SCALAR || L.sb[0] == 1);
-  if (contig) {
-    gl_mul_contig_kernel<B_SCALAR><<<grid_for(n), BLOCK, 0, stream>>>(
-        a, b, b_value, out, n);
-    return;
-  }
-  const int64_t lim = INT32_MAX;
-  const bool small = n <= lim && extent(L.size, L.sa, L.ndim) <= lim &&
-                     extent(L.size, L.sb, L.ndim) <= lim;
-  if (small)
-    gl_mul_strided_kernel<uint32_t, B_SCALAR><<<grid_for(n), BLOCK, 0, stream>>>(
-        a, b, b_value, out, n, L);
-  else
-    gl_mul_strided_kernel<uint64_t, B_SCALAR><<<grid_for(n), BLOCK, 0, stream>>>(
-        a, b, b_value, out, n, L);
-}
-
 }  // namespace
 
 extern "C" {
@@ -136,27 +104,36 @@ extern "C" {
 // out (n,) contiguous = a·b mod p over a layout of ndim <= 8 dims (sizes,
 // then the element strides of a and of b). b == nullptr multiplies every
 // element by b_value instead. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a layout the kernel does not take.
+// cudaErrorInvalidValue for a layout the kernel does not take (n, or an
+// operand's extent, above INT32_MAX).
 int wt_gl_mul(const void* a, const void* b, uint64_t b_value, void* out,
               int64_t n, int ndim, const int64_t* sizes,
               const int64_t* a_strides, const int64_t* b_strides,
               void* stream) {
-  if (ndim < 1 || ndim > MAX_DIMS || n < 1)
+  if (ndim < 1 || ndim > MAX_DIMS || n < 1 || n > INT32_MAX ||
+      extent(sizes, a_strides, ndim) > INT32_MAX ||
+      (b != nullptr && extent(sizes, b_strides, ndim) > INT32_MAX))
     return static_cast<int>(cudaErrorInvalidValue);
   Layout L;
   L.ndim = ndim;
   for (int d = 0; d < ndim; ++d) {
-    L.size[d] = sizes[d];
-    L.sa[d] = a_strides[d];
-    L.sb[d] = b == nullptr ? 0 : b_strides[d];
+    L.size[d] = static_cast<uint32_t>(sizes[d]);
+    L.sa[d] = static_cast<uint32_t>(a_strides[d]);
+    L.sb[d] = b == nullptr ? 0 : static_cast<uint32_t>(b_strides[d]);
   }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* pa = static_cast<const uint64_t*>(a);
   auto* po = static_cast<uint64_t*>(out);
+  const int64_t blocks = (n + BLOCK - 1) / BLOCK;
+  const unsigned int grid =
+      static_cast<unsigned int>(blocks < MAX_GRID ? blocks : MAX_GRID);
+  const auto count = static_cast<uint32_t>(n);
   if (b == nullptr)
-    launch<true>(pa, nullptr, b_value, po, n, L, s);
+    gl_mul_kernel<true><<<grid, BLOCK, 0, s>>>(pa, nullptr, b_value, po,
+                                               count, L);
   else
-    launch<false>(pa, static_cast<const uint64_t*>(b), 0, po, n, L, s);
+    gl_mul_kernel<false><<<grid, BLOCK, 0, s>>>(
+        pa, static_cast<const uint64_t*>(b), 0, po, count, L);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,7 +7,8 @@ plain version. The parts:
 
 - ``mul_layout(a, b)``: checks the operands and returns the layout the
   kernel reads (broadcast shape, dims of size 1 dropped, neighbouring dims
-  merged where both operands allow it). It runs on every device, so the CPU
+  merged where both operands allow it; the kernel's offsets are 32-bit, so
+  no operand may reach 2^31 elements). It runs on every device, so the CPU
   tests hold every caller to what the kernel takes;
 - ``gl_mul_kernel(a, b)``: launches the kernel on the current stream,
   without synchronising, and adds one to ``LAUNCHES["gl_mul"]``. It reads
@@ -32,6 +33,9 @@ import torch
 from . import goldilocks as gl
 
 MAX_DIMS = 8  # csrc/goldilocks.cu MAX_DIMS
+# the kernel's offsets are 32-bit: the product's size and the largest
+# element offset of each operand stay at or below this
+INDEX_LIMIT = 2**31 - 1
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"gl_mul": 0}
@@ -95,6 +99,13 @@ def mul_layout(a, b) -> MulLayout:
     numel = 1
     for size in shape:
         numel *= size
+    reach = {"elements": numel,
+             "a's extent": 1 + sum((m[0] - 1) * m[1] for m in merged),
+             "b's extent": 1 + sum((m[0] - 1) * m[2] for m in merged)}
+    for what, r in reach.items():
+        if r > INDEX_LIMIT:
+            raise ValueError(f"gl_mul: {what} {r} above {INDEX_LIMIT}, the "
+                             "kernel's offsets are 32-bit")
     return MulLayout(shape, numel, tuple(m[0] for m in merged),
                      tuple(m[1] for m in merged),
                      () if scalar else tuple(m[2] for m in merged))

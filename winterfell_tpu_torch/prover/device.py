@@ -39,7 +39,6 @@ in every route. Entry points run on the card unless the caller passes
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import Dict, List
 
@@ -342,22 +341,6 @@ def _ood_lists(pair: np.ndarray):
     return cur, nxt
 
 
-@contextlib.contextmanager
-def _sync_debug(device, mode):
-    """Runs the body under ``torch.cuda.set_sync_debug_mode(mode)`` on a CUDA
-    device (mode "error" turns every host synchronisation into an error);
-    does nothing for mode None or the CPU."""
-    if mode is None or device.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode(mode)
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
-
-
 def _deep_combine(comp_z, comp_gz, z_arr, zg_arr, xs):
     """comp_z/(x−z) + comp_gz/(x−z·g) with one paired extension inversion."""
     d = comp_z.shape[1]
@@ -376,13 +359,7 @@ def _deep_combine(comp_z, comp_gz, z_arr, zg_arr, xs):
 class GoldilocksProver(Prover):
     """Drop-in Prover for f64 AIRs with Rp64_256 commitments. Subclass or wrap
     an existing prover class via ``accelerate``; pass ``device=`` (default
-    "cuda") to choose where the pipeline runs.
-
-    ``resident_sync_debug`` (None, "warn" or "error") runs the device part of
-    the resident route under ``torch.cuda.set_sync_debug_mode``: with
-    "error", any host synchronisation there raises (chip_smoke.py sets it)."""
-
-    resident_sync_debug = None
+    "cuda") to choose where the pipeline runs."""
 
     def __init__(self, *args, device="cuda", **kwargs):
         super().__init__(*args, **kwargs)
@@ -546,11 +523,10 @@ class GoldilocksProver(Prover):
             None, list(range(air.context.num_assertions)))
         seq = self._resident_consts(air, boundary, fri_opts, n_layers)
         seed0 = dc.seed_tensor(channel.public_coin.seed, dev)
-        with _sync_debug(dev, self.resident_sync_debug):
-            (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
-             main_pair, comp_pair, fri_outs, rem_coeffs, seed) = \
-                self._resident_run(air, boundary, seq, main_dev, seed0,
-                                   fri_opts.folding_factor, n_layers)
+        (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
+         main_pair, comp_pair, fri_outs, rem_coeffs, seed) = \
+            self._resident_run(air, boundary, seq, main_dev, seed0,
+                               fri_opts.folding_factor, n_layers)
 
         pulled = _pull_small([m_levels[-1], c_levels[-1]]
                              + [lv[-1] for _, _, lv in fri_outs]
