@@ -9,8 +9,12 @@ Phases, each printed with its elapsed seconds as it ends:
    nvcc per source, all at once).
 2. kernels: every kernel of the main path against its plain PyTorch version
    on the card, bit for bit (field elements are exact integers): K1 row hash,
-   K2 merge, K3 field multiply (contiguous, broadcast, strided, Python-int
-   operands), and the device coin's permute_rows and draw kernels.
+   K2 merge per level and the Merkle tree kernel (leaf counts 2^0, 2^1, each
+   side of the one-block tail, 2^21), K3 field multiply (contiguous,
+   broadcast, strided, Python-int operands), and the device coin's
+   permute_rows and draw kernels; the Rescue kernels on random values and on
+   corner sets (0, 1, 2^32 - 1, 2^32, 2^63, p - 2^32, p - 2, p - 1), with
+   one thread and with four threads per permutation.
 3. card vs CPU: a fib proof at trace 2^10 on the card and on the CPU, on the
    resident route and on the phased route; the four Proof.to_bytes() must be
    equal and verify() must accept the proof.
@@ -25,7 +29,10 @@ Phases, each printed with its elapsed seconds as it ends:
    resident prove.
 5. kernel times at the main path's shapes against their bounds: device time
    per launch from launches replayed in a CUDA graph, beside the time per
-   call when the wrapper is called back to back from Python.
+   call when the wrapper is called back to back from Python; the whole
+   2^21-leaf tree, one-row K1 and K2 latency, and the Rescue kernels with
+   one and with four threads per permutation at the same shapes (the rule
+   of ops/rescue.py picks one).
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict. Any failure exits non-zero before that verdict. Without a
@@ -34,6 +41,7 @@ CUDA card the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -80,6 +88,35 @@ def _rng_field(rng, shape, device):
     a.flat[0] = 0
     a.flat[-1] = gl.P - 1
     return torch.from_numpy(a.view(np.int64)).to(device)
+
+
+def _corner_field(shape, device):
+    """Canonical corner values only, near which a slip in a lazy reduction
+    shows: rows 0..7 each one corner repeated, later rows mixes of them."""
+    from winterfell_tpu_torch.ops import goldilocks as gl
+
+    c = np.array([0, 1, 2**32 - 1, 2**32, 2**63, gl.P - 2**32, gl.P - 2,
+                  gl.P - 1], dtype=np.uint64)
+    r = np.arange(shape[0])[:, None]
+    j = np.arange(shape[1])[None, :]
+    idx = np.where(r < len(c), r, 3 * r + 5 * j) % len(c)
+    return torch.from_numpy(c[idx].view(np.int64)).to(device)
+
+
+@contextlib.contextmanager
+def _lanes_forced(g):
+    """Every Rescue wrapper launch inside takes g threads per permutation
+    (the tree's one-block tail keeps 4); g None keeps the rule of
+    ops/rescue.py."""
+    from winterfell_tpu_torch.ops import rescue
+
+    saved = rescue._FILL
+    if g is not None:
+        rescue._FILL = 0 if g == 1 else 1 << 62
+    try:
+        yield
+    finally:
+        rescue._FILL = saved
 
 
 def _max_abs_err(a, b) -> float:
@@ -164,6 +201,12 @@ def _bound(imads: float, nbytes: float):
 
 def _bound_merge(m: int):
     return _bound(m * IMAD_PER_PERM, m * 96)
+
+
+def _bound_tree(n: int):
+    """The levels over n leaves: n - 1 merges; the leaves read once and the
+    n - 1 nodes written once, 32 bytes each."""
+    return _bound((n - 1) * IMAD_PER_PERM, (2 * n - 1) * 32)
 
 
 def _bound_mul(x, y):
@@ -279,8 +322,9 @@ def main() -> int:
 
     # 2 ----- kernels against their plain versions, on the card -------------
     t0 = time.perf_counter()
-    errs = {"rp64_hash_rows": 0.0, "rp64_merge_rows": 0.0, "gl_mul": 0.0,
-            "rp64_permute_rows": 0.0, "rp64_coin_draw": 0.0}
+    errs = {"rp64_hash_rows": 0.0, "rp64_merge_rows": 0.0,
+            "rp64_merkle_tree": 0.0, "gl_mul": 0.0, "rp64_permute_rows": 0.0,
+            "rp64_coin_draw": 0.0}
 
     def check(name, got, plain, shape):
         errs[name] = max(errs[name], _exact(got, plain, f"{name} {shape}"))
@@ -291,26 +335,65 @@ def main() -> int:
     # composition columns of the main path's AIR (its LDE rows are 3·that)
     comp_air = FibSmallAir(TraceInfo(2, 1 << log2_trace), 1, options)
     comp_cols = comp_air.context.num_constraint_composition_columns()
+    # the Rescue kernels on random and corner values: with the wrappers' rule
+    # for threads per permutation, then with 1 and with 4 forced
+    tail = 1 << rescue._TREE_TAIL_LOG
+    chunk = 1 << rescue._TREE_CHUNK_LOG
+    both = [_rng_field, lambda _, shape, where: _corner_field(shape, where)]
+    cases = []  # (kernel name, wrapper, plain, inputs, shape)
     for k in (1, 2, 3, 7, 8, 9, 12, 16, 24):
         for m in (1, 255, 256, 768, 1000):
-            x = _rng_field(rng, (m, k), dev)
+            for make in both:
+                cases.append(("rp64_hash_rows", rescue.rp64_hash_rows,
+                              rescue.rp64_hash_rows_plain,
+                              (make(rng, (m, k), dev),), (m, k)))
+    for m in (1, 3, 1 << 10):
+        for make in both:
+            level = make(rng, (2 * m, 4), dev)
+            cases.append(("rp64_merge_rows", rescue.rp64_merge_rows,
+                          rescue.rp64_merge_rows_plain,
+                          (level[0::2], level[1::2]), (m, 4)))
+    for n in (1, 2, 4, tail // 2, tail, 2 * tail, chunk, 2 * chunk):
+        for make in both:
+            cases.append(("rp64_merkle_tree", rescue.rp64_merkle_levels,
+                          rescue.rp64_merkle_levels_plain,
+                          (make(rng, (n, 4), dev),), ("leaves", n)))
+    for m in (1, 5, 1000):
+        for make in both:
+            cases.append(("rp64_permute_rows", device_coin.permute_rows,
+                          device_coin.permute_rows_plain,
+                          (make(rng, (m, 12), dev),), (m, 12)))
+
+    def flat(out):  # a tree's levels as one tensor
+        if not isinstance(out, list):
+            return out
+        return (torch.cat(out) if out else
+                torch.zeros((0, 4), dtype=torch.int64, device=dev))
+
+    for name, fn, plain, args, shape in cases:
+        want = flat(plain(*args))
+        for g in ((None,) if REHEARSAL else (None, 1, 4)):
+            with _lanes_forced(g):
+                check(name, flat(fn(*args)), want, (shape, "lanes", g))
+    # the main path's shapes, with the rule: a Merkle level of the LDE, the
+    # whole 2^21-leaf tree, and the row hashes of the trace LDE, the
+    # composition LDE, a FRI layer, and the 12-wide rows of the loop-variant
+    # experiment
+    for make in both:
+        level = make(rng, (big, 4), dev)
+        check("rp64_merge_rows",
+              rescue.rp64_merge_rows(level[0::2], level[1::2]),
+              rescue.rp64_merge_rows_plain(level[0::2], level[1::2]),
+              ("level", big, 4))
+        check("rp64_merkle_tree", flat(rescue.rp64_merkle_levels(level)),
+              flat(rescue.rp64_merkle_levels_plain(level)), ("leaves", big))
+        for m, k in ((big, 2), (big, 3 * comp_cols), (big // 8, 24),
+                     (big, 12)):
+            x = make(rng, (m, k), dev)
             check("rp64_hash_rows", rescue.rp64_hash_rows(x),
                   rescue.rp64_hash_rows_plain(x), (m, k))
-    for m in (1, 3, 1 << 10, big // 2):
-        l, r = _rng_field(rng, (m, 4), dev), _rng_field(rng, (m, 4), dev)
-        check("rp64_merge_rows", rescue.rp64_merge_rows(l, r),
-              rescue.rp64_merge_rows_plain(l, r), (m, 4))
-    level = _rng_field(rng, (big, 4), dev)  # a Merkle level's sibling pairs
-    check("rp64_merge_rows", rescue.rp64_merge_rows(level[0::2], level[1::2]),
-          rescue.rp64_merge_rows_plain(level[0::2], level[1::2]),
-          ("level", big, 4))
-    # the main path's row-hash shapes: trace LDE, composition LDE, a FRI
-    # layer, and the 12-wide rows of the loop-variant experiment
-    for m, k in ((big, 2), (big, 3 * comp_cols), (big // 8, 24), (big, 12)):
-        x = _rng_field(rng, (m, k), dev)
-        check("rp64_hash_rows", rescue.rp64_hash_rows(x),
-              rescue.rp64_hash_rows_plain(x), (m, k))
-    log("K1 rp64_hash_rows and K2 rp64_merge_rows equal their plain versions")
+    log("K1 rp64_hash_rows, K2 rp64_merge_rows, the tree kernel and "
+        "permute_rows equal their plain versions")
 
     # K3 at (LDE,) over all u64 patterns, the first elements the corner set
     # of tests/test_pallas_kernels.py and patterns >= p, paired every way
@@ -352,15 +435,9 @@ def main() -> int:
               (name, tuple(x.shape)))
     log("K3 gl_mul equals its plain version (and the oracle on the corners)")
 
-    # the coin: permute_rows on given states, and the draw kernel on
-    # candidates of the main path's draws, with rejected candidates injected
-    # so the kernel's own continuation is held against the serial loop too
-    for m in (1, 5, 1000):
-        st = _rng_field(rng, (m, 12), dev)
-        perm = (device_coin.permute_rows(st) if not REHEARSAL else
-                device_coin.permute_rows_plain(st))
-        check("rp64_permute_rows", perm, device_coin.permute_rows_plain(st),
-              (m, 12))
+    # the coin's draw kernel on candidates of the main path's draws, with
+    # rejected candidates injected so the kernel's own continuation is held
+    # against the serial loop too
     seed = _rng_field(rng, (4,), dev)
     _, next_candidates = device_coin.rp64_coin_ops()
     for k, d, reject in ((1, 3, ()), (5, 3, ()), (7, 1, ()), (3, 2, (1,)),
@@ -372,7 +449,7 @@ def main() -> int:
         want_e, want_c = device_coin.draw_plain(cands, seed, 0, k, d)
         check("rp64_coin_draw", torch.cat([got_e.reshape(-1), got_c]),
               torch.cat([want_e.reshape(-1), want_c]), (k, d, reject))
-    log("the coin's permute_rows and draw kernels equal their plain versions")
+    log("the coin's draw kernel equals its plain version")
     phase("2 kernels", t0)
 
     # 3 ----- card vs CPU, both routes ---------------------------------------
@@ -487,6 +564,11 @@ def main() -> int:
             if c <= 0:
                 raise AssertionError(f"kernel {name} was not launched by a "
                                      "resident prove")
+    for route, counts in runs.items():
+        k2 = counts["rp64_merge_rows"] + counts["rp64_merkle_tree"]
+        if k2 > 30:
+            raise AssertionError(f"{route}: {k2} K2 launches per prove (per "
+                                 "level and tree kernel), more than 30")
     log("resident and phased proofs have the same bytes" + (
         "" if REHEARSAL else "; the resident device run made no host "
         "synchronisation"))
@@ -502,17 +584,41 @@ def main() -> int:
                 "plain_ms": _time_ms(plain, 1), "bound_ms": bound[0],
                 "bound_by": bound[1]}
 
+    def lanes_entry(shape, call, plain, bound):
+        """entry() of call(None), a Rescue wrapper under the rule of
+        ops/rescue.py, plus its kernel time with 1 and with 4 threads per
+        permutation forced."""
+        e = entry(shape, lambda: call(None), plain, bound)
+        e["ms_by_lanes"] = {}
+        for g in (1, 4):
+            e["ms_by_lanes"][str(g)] = _kernel_ms(lambda: call(g), reps)
+        return e
+
+    def forced(fn, *args):
+        def call(g):
+            with _lanes_forced(g):
+                return fn(*args)
+        return call
+
     def hash_entry(m, k):
         x = _rng_field(rng, (m, k), dev)
-        return entry((m, k), lambda: rescue.rp64_hash_rows(x),
-                     lambda: rescue.rp64_hash_rows_plain(x), _bound_hash(m, k))
+        return lanes_entry((m, k), forced(rescue.rp64_hash_rows, x),
+                           lambda: rescue.rp64_hash_rows_plain(x),
+                           _bound_hash(m, k))
 
     def merge_entry(m):
         level = _rng_field(rng, (2 * m, 4), dev)
         l, r = level[0::2], level[1::2]
-        return entry((m, 4), lambda: rescue.rp64_merge_rows(l, r),
-                     lambda: rescue.rp64_merge_rows_plain(l, r),
-                     _bound_merge(m))
+        return lanes_entry((m, 4), forced(rescue.rp64_merge_rows, l, r),
+                           lambda: rescue.rp64_merge_rows_plain(l, r),
+                           _bound_merge(m))
+
+    def tree_entry(n):
+        leaves = _rng_field(rng, (n, 4), dev)
+        return lanes_entry(("leaves", n),
+                           forced(rescue.rp64_merkle_levels, leaves),
+                           lambda: rescue.rp64_merkle_levels_plain(leaves),
+                           _bound_tree(n))
 
     def mul_entry(x, y, shape):
         return entry(shape, lambda: k3(x, y),
@@ -521,11 +627,9 @@ def main() -> int:
 
     def permute_entry(m):
         st = _rng_field(rng, (m, 12), dev)
-        fn = (device_coin.permute_rows if not REHEARSAL else
-              device_coin.permute_rows_plain)
-        return entry((m, 12), lambda: fn(st),
-                     lambda: device_coin.permute_rows_plain(st),
-                     _bound_permute(m))
+        return lanes_entry((m, 12), forced(device_coin.permute_rows, st),
+                           lambda: device_coin.permute_rows_plain(st),
+                           _bound_permute(m))
 
     def draw_entry(k, d):
         cands = next_candidates(seed, 0, k)
@@ -542,11 +646,20 @@ def main() -> int:
     records = [
         ("rp64_hash_rows", "winterfell_tpu/ops/pallas_rescue.py:596",
          "winterfell_tpu_torch/csrc/rescue.cu",
-         # the last shape is K4's: scripts/pallas_loop_exp.py runs K1's
-         # body on (2^21, 12) rows
-         [hash_entry(big, 2), hash_entry(big // 8, 24), hash_entry(big, 12)]),
+         # PR 4's shapes first, the third K4's (scripts/pallas_loop_exp.py
+         # runs K1's body on (2^21, 12) rows); then the composition LDE, the
+         # smaller FRI layers and the one-row OOD hash
+         [hash_entry(big, 2), hash_entry(big // 8, 24), hash_entry(big, 12),
+          hash_entry(big, 3 * comp_cols), hash_entry(big // 64, 24),
+          hash_entry(big // 512, 24), hash_entry(1, 18)]),
         ("rp64_merge_rows", "winterfell_tpu/ops/pallas_rescue.py:632",
-         "winterfell_tpu_torch/csrc/rescue.cu", [merge_entry(big // 2)]),
+         "winterfell_tpu_torch/csrc/rescue.cu",
+         # a level of the LDE tree, and the coin's one-row reseed
+         [merge_entry(big // 2), merge_entry(1)]),
+        ("rp64_merkle_tree", "winterfell_tpu/ops/pallas_rescue.py:632 (K2's "
+         "kernel over every level of a tree)",
+         "winterfell_tpu_torch/csrc/rescue.cu",
+         [tree_entry(big), tree_entry(big // 8), tree_entry(big // 512)]),
         ("gl_mul", "winterfell_tpu/ops/pallas_kernels.py:129",
          "winterfell_tpu_torch/csrc/goldilocks.cu",
          [mul_entry(a, b, (big,)),
@@ -573,10 +686,14 @@ def main() -> int:
             "library_ms": None, "shape": main["shape"], "shapes": shapes})
     for kr in kernels:
         for s in kr["shapes"]:
+            lanes = s.get("ms_by_lanes")
             log(f"{kr['name']} {s['shape']}: {s['ms']:.4f} ms (launched "
                 f"back to back from Python {s['host_ms']:.4f} ms), plain "
                 f"{s['plain_ms']:.1f} ms, bound {s['bound_ms']:.4f} ms "
-                f"({s['bound_by']})")
+                f"({s['bound_by']})" + ("" if lanes is None else
+                                       f"; 1 thread per permutation "
+                                       f"{lanes['1']:.4f} ms, 4 threads "
+                                       f"{lanes['4']:.4f} ms"))
     phase("5 kernel times", t0)
 
     print(smi, flush=True)

@@ -36,12 +36,28 @@ def _rand(seed, shape, device, high=P):
     return torch.from_numpy(a.view(np.int64)).to(device)
 
 
+# canonical values next to which a slip in a lazy reduction shows
+CORNERS = [0, 1, 2**32 - 1, 2**32, 2**63, P - 2**32, P - 2, P - 1]
+
+
+def _corners(rows, k, device):
+    """(rows, k) of corner values only: rows 0..7 each one corner repeated,
+    later rows mixes of them."""
+    r, j = np.arange(rows)[:, None], np.arange(k)[None, :]
+    idx = np.where(r < len(CORNERS), r, 3 * r + 5 * j) % len(CORNERS)
+    a = np.array(CORNERS, dtype=np.uint64)[idx]
+    return torch.from_numpy(a.view(np.int64)).to(device)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 7, 8, 9, 12, 16, 24])
 @pytest.mark.parametrize("m", [1, 256, 1000])
 def test_hash_rows_kernel_equals_plain(cuda, m, k):
     rows = _rand(m * 31 + k, (m, k), cuda)
     assert torch.equal(rescue.rp64_hash_rows(rows),
                        rescue.rp64_hash_rows_plain(rows))
+    corners = _corners(m, k, cuda)
+    assert torch.equal(rescue.rp64_hash_rows(corners),
+                       rescue.rp64_hash_rows_plain(corners))
 
 
 @pytest.mark.parametrize("m", [1, 3, 1 << 10, 1 << 16])
@@ -52,6 +68,23 @@ def test_merge_rows_kernel_equals_plain(cuda, m):
     level = _rand(m + 2, (2 * m, 4), cuda)  # sibling pairs of one level
     assert torch.equal(rescue.rp64_merge_rows(level[0::2], level[1::2]),
                        rescue.rp64_merge_rows_plain(level[0::2], level[1::2]))
+    corners = _corners(2 * m, 4, cuda)
+    assert torch.equal(rescue.rp64_merge_rows(corners[0::2], corners[1::2]),
+                       rescue.rp64_merge_rows_plain(corners[0::2],
+                                                    corners[1::2]))
+    # the tree kernel at leaf counts near m: each side of the one-block tail
+    # and of a multi-level block, random and corner leaves
+    tail, chunk = 1 << rescue._TREE_TAIL_LOG, 1 << rescue._TREE_CHUNK_LOG
+    sizes = {1: (1, 2, 4), 3: (tail // 2, tail, 2 * tail),
+             1 << 10: (chunk, 2 * chunk, tail * chunk),
+             1 << 16: (2 * tail * chunk, 1 << 21)}[m]
+    for n in sizes:
+        for leaves in (_rand(n + 7, (n, 4), cuda), _corners(n, 4, cuda)):
+            got = rescue.rp64_merkle_levels(leaves)
+            want = rescue.rp64_merkle_levels_plain(leaves)
+            assert len(got) == len(want), n
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (n, a.shape[0])
 
 
 def test_gl_mul_kernel_equals_plain_over_all_u64(cuda):
@@ -142,5 +175,6 @@ def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):
     cpu = prover_cls(opts, Rp64_256, device="cpu").prove(
         tfib.build_fib_trace(F64, 64))
     assert card.to_bytes() == cpu.to_bytes()
-    assert launches["rp64_hash_rows"] > 0 and launches["rp64_merge_rows"] > 0
+    # a trace this small has no FRI layer (host coin): no one-row reseed
+    assert launches["rp64_hash_rows"] > 0 and launches["rp64_merkle_tree"] > 0
     assert launches["gl_mul"] > 0

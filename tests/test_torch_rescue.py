@@ -86,14 +86,39 @@ def test_merkle_levels_match_host_tree(log_leaves):
         size = lvl.shape[0]
         nodes = [_digest(r) for r in _u64(lvl)]
         assert nodes == tree.nodes[size : 2 * size]
+    # a single leaf is its own root: no internal level
+    assert rescue.rp64_merkle_levels(_t(leaves[:1])) == []
 
 
 def test_merkle_levels_match_jax_engine():
     leaves = _rows(99, 16, 4)
     nodes = jgl.merkle_build_rp64(jgl.jnp.asarray(leaves))
-    for lvl in tgl.merkle_levels_rp64(_t(leaves)):
+    levels = tgl.merkle_levels_rp64(_t(leaves))
+    plain = rescue.rp64_merkle_levels_plain(_t(leaves))
+    assert len(levels) == len(plain) == 4
+    for lvl, want in zip(levels, plain):
         size = lvl.shape[0]
         assert np.array_equal(_u64(lvl), nodes[size : 2 * size])
+        assert torch.equal(lvl, want)
+    # the launches of the tree kernel on a card merge every level once,
+    # largest first, each from the level the one before left; all but the
+    # last leave at least the tail's nodes, and the last is one block
+    tail = 1 << rescue._TREE_TAIL_LOG
+    for log_n in range(0, 26):
+        plan = rescue._tree_plan(log_n)
+        lg = log_n
+        for i, (src, b, g) in enumerate(plan):
+            assert src == lg and 1 <= b <= rescue._TREE_CHUNK_LOG
+            lg -= b
+            assert g in (1, 4)
+            if i < len(plan) - 1:
+                assert 1 << lg >= tail
+            else:
+                assert lg == 0 and (1 << src) <= tail and g == 4
+        assert lg == 0 and (log_n > 0) == bool(plan)
+    # the trees of a resident 2^18 fib prove (LDE 2^21, five FRI layers)
+    assert sum(len(rescue._tree_plan(n)) for n in (21, 21, 18, 15, 12, 9, 6)) \
+        == 15
 
 
 def test_wrappers_check_their_inputs():
@@ -107,6 +132,14 @@ def test_wrappers_check_their_inputs():
     with pytest.raises(ValueError):
         rescue.rp64_hash_rows(torch.zeros((4, 2), dtype=torch.int64,
                                           device="meta"))
+    # the tree: power-of-two leaf counts of (n, 4) int64 rows, contiguous,
+    # on the CPU or a card
+    for bad in (_z(3, 4), _z(0, 4), _z(4, 3), _z(4), _z(8, 4)[0::2],
+                torch.zeros((4, 4), dtype=torch.int64, device="meta")):
+        with pytest.raises(ValueError):
+            rescue.rp64_merkle_levels(bad)
+    with pytest.raises(TypeError):
+        rescue.rp64_merkle_levels(torch.zeros((4, 4), dtype=torch.int32))
 
 
 def _z(*shape):
@@ -140,4 +173,6 @@ def test_launch_counts_only_count_kernel_launches():
     rescue.reset_launches()
     rescue.rp64_hash_rows(_t(_rows(1, 8, 3)))
     rescue.rp64_merge_rows(_t(_rows(2, 8, 4)), _t(_rows(3, 8, 4)))
-    assert rescue.LAUNCHES == {"rp64_hash_rows": 0, "rp64_merge_rows": 0}
+    rescue.rp64_merkle_levels(_t(_rows(4, 8, 4)))
+    assert rescue.LAUNCHES == {"rp64_hash_rows": 0, "rp64_merge_rows": 0,
+                               "rp64_merkle_tree": 0}

@@ -1,16 +1,65 @@
-// Rescue-Prime Rp64_256 row hashing (K1) and 2-to-1 merge (K2) for Hopper,
-// and the two kernels of the device coin (ops/device_coin.py): the bare
-// permutation of given states and the rejection-sampling draw.
+// Rescue-Prime Rp64_256 for Hopper: row hashing (K1), the 2-to-1 merge (K2)
+// per level and over whole Merkle trees, and the two kernels of the device
+// coin (ops/device_coin.py): the bare permutation of given states and the
+// rejection-sampling draw.
 //
-// Field elements are canonical Goldilocks values (p = 2^64 - 2^32 + 1) held
-// as native uint64_t. The permutation is the reference's Rescue-XLIX
-// (crypto/src/hash/rescue/rp64_256/mod.rs:299-319): 7 rounds of
+// Replaces the TPU kernels of winterfell_tpu/ops/pallas_rescue.py
+// (_hash_rows_call and _merge_rows_call, bodies _hash_rows_kernel[_loop] and
+// _merge_rows_kernel[_loop]). The permutation is the reference's
+// Rescue-XLIX (crypto/src/hash/rescue/rp64_256/mod.rs:299-319): 7 rounds of
 // S-box x^7, MDS, ARK1, inverse S-box x^(1/7), MDS, ARK2 over a 12-element
 // state (capacity 0..4, rate 4..12, digest = state[4..8]).
 //
+// Bound on this card: 32-bit integer multiply-adds (IMAD). A permutation
+// needs 7·12·76 = 6,384 field multiplies (65 of every 76 are squarings) and
+// 14 MDS products, about 48k IMADs, against at most 192 bytes moved: the
+// bytes take a few percent of the IMAD time at every shape of the main path.
+// What each choice of the one permutation body below does about it:
+//
+// - Lazy values. Between operations a value is any u64 congruent to the
+//   field element (as the TPU kernel's values, pallas_rescue.py:15); the
+//   128-bit reduction (reduce_lazy) ends without the compare-and-subtract of
+//   a canonical result. One canon per lane ends each permutation, which is
+//   where the sponge needs canonical values: before the absorb adds of a
+//   later rate chunk, before digest and state writes, and before the draw
+//   kernel's < p test (the pallas_rescue.py:399-411 trap).
+// - Carry chains in PTX. Written in C++ on u64, the products and the
+//   reduction compiled to 64-bit shifts, compares and selects: 34 SASS
+//   instructions per squaring, two thirds of them on the ALU pipe, which
+//   then bounds the kernel (16 lanes per SM quarter, like the IMAD pipe).
+//   The products and reductions here are 32-bit multiply-adds and add/sub
+//   with carry (mul_lazy, sqr_lazy, reduce_lazy): no compare, no select.
+// - Squarings take 3 partial products, not 4 (sqr_lazy; the TPU kernel's
+//   _gl_sqr): a0², a1², and a0·a1 added twice.
+// - The MDS is the circulant product written out with compile-time
+//   coefficients (mds_coef, all <= 26): per output 24 IMAD.WIDE.U32 with an
+//   immediate multiplier accumulate the 32-bit halves of the inputs, so the
+//   MDS runs on the IMAD pipe while the reductions run on the ALU pipe. The
+//   frequency-domain form (_mds12_freq, goldilocks.py:777) trades 288 of
+//   those for about 90 constant products and 400 64-bit adds and subtracts
+//   of the two halves, each two ALU instructions: more instructions, all on
+//   the busier pipe. The round constant is added in the same recombine.
+// - The round constants are copied into shared memory once per block; a
+//   round reads its 12 from there.
+// - Lanes across threads (template parameter G): G = 1 holds the whole
+//   state in one thread (12 independent lanes give the S-box chains their
+//   instruction-level parallelism; the most throughput per thread). G = 4
+//   splits one permutation over 4 neighbouring threads of a warp, 3 lanes
+//   each: the S-boxes run lane-parallel and the MDS fetches the 9 lanes it
+//   lacks with __shfl_sync inside the group. A lone permutation then takes
+//   about a quarter of the instructions on its critical path, which is what
+//   the coin's serial steps, the one-row hashes and the top levels of a
+//   Merkle tree wait on. The wrappers (ops/rescue.py) pick G from the row
+//   count.
+// - Whole trees in a few launches (merkle_levels_kernel): a block merges
+//   2^b consecutive nodes of a level into b levels, keeping each level in
+//   shared memory for the next and writing it out; one block finishes the
+//   tree once few nodes are left.
+//
 // Built with nvcc into a plain-C shared library (see ops/_build.py); the
-// wrappers in ops/rescue.py pass device pointers, sizes and the current
-// stream, and raise when an entry point returns a CUDA error.
+// wrappers in ops/rescue.py and ops/device_coin.py pass device pointers,
+// sizes and the current stream, and raise when an entry point returns a CUDA
+// error.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -22,188 +71,449 @@ constexpr uint64_t EPS = 0xFFFFFFFFull;  // 2^64 mod p
 constexpr int WIDTH = 12;
 constexpr int RATE = 8;
 constexpr int ROUNDS = 7;
-constexpr int BLOCK = 256;
+constexpr int ARK_SIZE = 2 * ROUNDS * WIDTH;  // ARK1 then ARK2, (2, 7, 12)
+constexpr int BLOCK = 128;                    // threads of the row kernels
+constexpr int TREE_THREADS_G4 = 512;          // most threads of a G = 4 tree block
+constexpr int STAGE_BYTES = 40 * 1024;        // K1 rows staged in shared memory
 
 // The circulant MDS matrix's first row (rescue_constants.py RP64_256_MDS[0]);
-// row i is this row rotated right by i.
-__constant__ uint64_t MDS_ROW[WIDTH] = {7, 23, 8, 26, 13, 10, 9, 7, 6, 22, 21, 8};
+// output i is sum_d MDS_ROW[d] · state[(i + d) mod 12].
+__host__ __device__ constexpr uint32_t mds_coef(int d) {
+  return d == 0 ? 7 : d == 1 ? 23 : d == 2 ? 8 : d == 3 ? 26 : d == 4 ? 13
+       : d == 5 ? 10 : d == 6 ? 9 : d == 7 ? 7 : d == 8 ? 6 : d == 9 ? 22
+       : d == 10 ? 21 : 8;
+}
 
 __device__ __forceinline__ uint64_t canon(uint64_t s) {
   return s >= P ? s - P : s;
 }
 
+// a + b for canonical a, b; canonical.
 __device__ __forceinline__ uint64_t gl_add(uint64_t a, uint64_t b) {
   uint64_t s = a + b;
   s += (s < a) ? EPS : 0;  // 2^64 ≡ 2^32 - 1; cannot wrap again for a, b < p
   return canon(s);
 }
 
-// hi·2^64 + lo mod p, with 2^64 ≡ 2^32 - 1 and 2^96 ≡ -1.
-__device__ __forceinline__ uint64_t reduce128(uint64_t hi, uint64_t lo) {
-  const uint64_t hi_hi = hi >> 32;
-  uint64_t t0 = lo - hi_hi;
-  if (lo < hi_hi) t0 -= EPS;
-  const uint64_t t1 = (hi & EPS) * EPS;
-  uint64_t t2 = t0 + t1;
-  if (t2 < t0) t2 += EPS;
-  return canon(t2);
+// The 128-bit value n3·2^96 + n2·2^64 + n1·2^32 + n0 mod p as a lazy value
+// (< 2^64, not necessarily < p). With 2^64 ≡ 2^32 - 1 and 2^96 ≡ -1 it is
+// (n0 + (n1 + n2)·2^32) - (n2 + n3) = r + t·2^64 with t in {-1, 0, 1} from
+// the carries, and t·2^64 ≡ t·(2^32 - 1), which cannot wrap r again. Carry
+// chains only: no compare, no select.
+__device__ __forceinline__ uint64_t reduce_lazy(uint32_t n0, uint32_t n1,
+                                                uint32_t n2, uint32_t n3) {
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 x1, c, y0, y1, r0, r1, t, u, v;\n\t"
+      "add.cc.u32 x1, %2, %3;\n\t"   // x = n0 + (n1 + n2)·2^32, carry c
+      "addc.u32 c, 0, 0;\n\t"
+      "add.cc.u32 y0, %3, %4;\n\t"   // y = n2 + n3
+      "addc.u32 y1, 0, 0;\n\t"
+      "sub.cc.u32 r0, %1, y0;\n\t"   // r = x - y; t = c - borrow
+      "subc.cc.u32 r1, x1, y1;\n\t"
+      "subc.u32 t, c, 0;\n\t"
+      "neg.s32 u, t;\n\t"            // t·(2^32 - 1) = (t >> 31 : -t)
+      "shr.s32 v, t, 31;\n\t"
+      "add.cc.u32 r0, r0, u;\n\t"
+      "addc.u32 r1, r1, v;\n\t"
+      "mov.b64 %0, {r0, r1};\n\t"
+      "}"
+      : "=l"(r)
+      : "r"(n0), "r"(n1), "r"(n2), "r"(n3));
+  return r;
 }
 
-__device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
-  return reduce128(__umul64hi(a, b), a * b);
+// a·b mod p, lazy, for any u64 a, b: four 32×32→64 partial products
+// accumulated with carries.
+__device__ __forceinline__ uint64_t mul_lazy(uint64_t a, uint64_t b) {
+  uint32_t n0, n1, n2, n3;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1, m0, m1, m2, m3;\n\t"
+      "mov.b64 {a0, a1}, %4;\n\t"
+      "mov.b64 {b0, b1}, %5;\n\t"
+      "mul.lo.u32 m0, a0, b0;\n\t"
+      "mul.hi.u32 m1, a0, b0;\n\t"
+      "mul.lo.u32 m2, a1, b1;\n\t"
+      "mul.hi.u32 m3, a1, b1;\n\t"
+      "mad.lo.cc.u32 m1, a0, b1, m1;\n\t"
+      "madc.hi.cc.u32 m2, a0, b1, m2;\n\t"
+      "addc.u32 m3, m3, 0;\n\t"
+      "mad.lo.cc.u32 m1, a1, b0, m1;\n\t"
+      "madc.hi.cc.u32 m2, a1, b0, m2;\n\t"
+      "addc.u32 m3, m3, 0;\n\t"
+      "mov.u32 %0, m0;\n\t"
+      "mov.u32 %1, m1;\n\t"
+      "mov.u32 %2, m2;\n\t"
+      "mov.u32 %3, m3;\n\t"
+      "}"
+      : "=r"(n0), "=r"(n1), "=r"(n2), "=r"(n3)
+      : "l"(a), "l"(b));
+  return reduce_lazy(n0, n1, n2, n3);
 }
 
-__device__ __forceinline__ uint64_t sbox(uint64_t x) {
-  const uint64_t x2 = gl_mul(x, x);
-  const uint64_t x4 = gl_mul(x2, x2);
-  return gl_mul(gl_mul(x4, x2), x);
+// a² mod p, lazy: three partial products, a0·a1 added twice at 2^32.
+__device__ __forceinline__ uint64_t sqr_lazy(uint64_t a) {
+  uint32_t n0, n1, n2, n3;
+  asm("{\n\t"
+      ".reg .u32 a0, a1, l, h, m0, m1, m2, m3;\n\t"
+      "mov.b64 {a0, a1}, %4;\n\t"
+      "mul.lo.u32 m0, a0, a0;\n\t"
+      "mul.hi.u32 m1, a0, a0;\n\t"
+      "mul.lo.u32 m2, a1, a1;\n\t"
+      "mul.hi.u32 m3, a1, a1;\n\t"
+      "mul.lo.u32 l, a0, a1;\n\t"
+      "mul.hi.u32 h, a0, a1;\n\t"
+      "add.cc.u32 m1, m1, l;\n\t"
+      "addc.cc.u32 m2, m2, h;\n\t"
+      "addc.u32 m3, m3, 0;\n\t"
+      "add.cc.u32 m1, m1, l;\n\t"
+      "addc.cc.u32 m2, m2, h;\n\t"
+      "addc.u32 m3, m3, 0;\n\t"
+      "mov.u32 %0, m0;\n\t"
+      "mov.u32 %1, m1;\n\t"
+      "mov.u32 %2, m2;\n\t"
+      "mov.u32 %3, m3;\n\t"
+      "}"
+      : "=r"(n0), "=r"(n1), "=r"(n2), "=r"(n3)
+      : "l"(a));
+  return reduce_lazy(n0, n1, n2, n3);
 }
 
-__device__ __forceinline__ uint64_t squares(uint64_t x, int k) {
+// acc + x·c for 32-bit x and c: one IMAD.WIDE.U32 (c a constant after
+// unrolling, so an immediate).
+__device__ __forceinline__ uint64_t mad_wide(uint32_t x, uint32_t c,
+                                             uint64_t acc) {
+  uint64_t r;
+  asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(r) : "r"(x), "r"(c), "l"(acc));
+  return r;
+}
+
+// s <- MDS · s + ark over the whole state, for the L = 12 / G lanes t·L ..
+// t·L + L - 1 that this thread holds (t = its place in its group of G
+// neighbouring threads); ark points at this thread's first lane's constant.
+// Inputs lazy, outputs lazy. With G > 1 every thread of the warp must call
+// it together (full-warp shuffles).
+template <int G>
+__device__ __forceinline__ void mds_ark(uint64_t (&s)[WIDTH / G],
+                                        const uint64_t* ark, int t) {
+  constexpr int L = WIDTH / G;
+  // v[q] = lane (t·L + q) mod 12: this thread's lanes, then the next
+  // threads' of the group in turn
+  uint64_t v[WIDTH];
+#pragma unroll
+  for (int e = 0; e < G; ++e)
+#pragma unroll
+    for (int f = 0; f < L; ++f)
+      v[e * L + f] = e == 0 ? s[f]
+                            : __shfl_sync(0xFFFFFFFFu, s[f], (t + e) & (G - 1), G);
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    // the exact sums over the 32-bit halves: each < 160·2^32 < 2^40
+    uint64_t acc_lo = 0, acc_hi = 0;
+#pragma unroll
+    for (int d = 0; d < WIDTH; ++d) {
+      const uint64_t x = v[(j + d) % WIDTH];
+      acc_lo = mad_wide(static_cast<uint32_t>(x), mds_coef(d), acc_lo);
+      acc_hi = mad_wide(static_cast<uint32_t>(x >> 32), mds_coef(d), acc_hi);
+    }
+    // acc_lo + acc_hi·2^32 + ark = n2·2^64 + n1·2^32 + n0, n2 < 2^9
+    const uint64_t c = ark[j];
+    uint32_t n0, n1, n2;
+    asm("{\n\t"
+        ".reg .u32 l0, l1, h0, h1, k0, k1;\n\t"
+        "mov.b64 {l0, l1}, %3;\n\t"
+        "mov.b64 {h0, h1}, %4;\n\t"
+        "mov.b64 {k0, k1}, %5;\n\t"
+        "add.cc.u32 l1, l1, h0;\n\t"
+        "addc.u32 h1, h1, 0;\n\t"
+        "add.cc.u32 l0, l0, k0;\n\t"
+        "addc.cc.u32 l1, l1, k1;\n\t"
+        "addc.u32 h1, h1, 0;\n\t"
+        "mov.u32 %0, l0;\n\t"
+        "mov.u32 %1, l1;\n\t"
+        "mov.u32 %2, h1;\n\t"
+        "}"
+        : "=r"(n0), "=r"(n1), "=r"(n2)
+        : "l"(acc_lo), "l"(acc_hi), "l"(c));
+    s[j] = reduce_lazy(n0, n1, n2, 0);
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void sbox(uint64_t (&s)[L]) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const uint64_t x2 = sqr_lazy(s[j]);
+    const uint64_t x4 = sqr_lazy(x2);
+    s[j] = mul_lazy(mul_lazy(x4, x2), s[j]);
+  }
+}
+
+template <int L>
+__device__ __forceinline__ void sqr_all(uint64_t (&x)[L]) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) x[j] = sqr_lazy(x[j]);
+}
+
+// x <- x^(2^k) on every lane, k >= 3, as a loop; the lanes interleave
+// inside each step.
+template <int L>
+__device__ __forceinline__ void squares(uint64_t (&x)[L], int k) {
 #pragma unroll 1
-  for (int i = 0; i < k; ++i) x = gl_mul(x, x);
-  return x;
+  for (int i = 0; i < k; ++i) sqr_all<L>(x);
+}
+
+template <int L>
+__device__ __forceinline__ void mul_into(uint64_t (&x)[L], const uint64_t (&y)[L]) {
+#pragma unroll
+  for (int j = 0; j < L; ++j) x[j] = mul_lazy(x[j], y[j]);
 }
 
 // x^INV_ALPHA by the reference's 72-multiplication addition chain
 // (rp64_256/mod.rs apply_inv_sbox; INV_ALPHA = 10540996611094048183).
-__device__ __forceinline__ uint64_t inv_sbox(uint64_t x) {
-  const uint64_t t1 = gl_mul(x, x);
-  const uint64_t t2 = gl_mul(t1, t1);
-  const uint64_t t3 = gl_mul(squares(t2, 3), t2);
-  const uint64_t t4 = gl_mul(squares(t3, 6), t3);
-  const uint64_t t5 = gl_mul(squares(t4, 12), t4);
-  const uint64_t t6 = gl_mul(squares(t5, 6), t3);
-  const uint64_t t7 = gl_mul(squares(t6, 31), t6);
-  uint64_t a = gl_mul(gl_mul(t7, t7), t6);
-  a = gl_mul(a, a);
-  a = gl_mul(a, a);
-  const uint64_t b = gl_mul(gl_mul(t1, t2), x);
-  return gl_mul(a, b);
+template <int L>
+__device__ __forceinline__ void inv_sbox(uint64_t (&s)[L]) {
+  uint64_t b[L], t3[L], t4[L], w[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const uint64_t t1 = sqr_lazy(s[j]);
+    w[j] = sqr_lazy(t1);                          // t2
+    b[j] = mul_lazy(mul_lazy(t1, w[j]), s[j]);    // t1·t2·x
+    t3[j] = w[j];
+  }
+  squares<L>(t3, 3);
+  mul_into<L>(t3, w);                             // t3 = t2^(2^3)·t2
+#pragma unroll
+  for (int j = 0; j < L; ++j) t4[j] = t3[j];
+  squares<L>(t4, 6);
+  mul_into<L>(t4, t3);                            // t4 = t3^(2^6)·t3
+#pragma unroll
+  for (int j = 0; j < L; ++j) w[j] = t4[j];
+  squares<L>(w, 12);
+  mul_into<L>(w, t4);                             // t5 = t4^(2^12)·t4
+  squares<L>(w, 6);
+  mul_into<L>(w, t3);                             // t6 = t5^(2^6)·t3
+#pragma unroll
+  for (int j = 0; j < L; ++j) t4[j] = w[j];       // t4 now holds t6
+  squares<L>(w, 31);
+  mul_into<L>(w, t4);                             // t7 = t6^(2^31)·t6
+  sqr_all<L>(w);
+  mul_into<L>(w, t4);                             // t7²·t6
+  sqr_all<L>(w);
+  sqr_all<L>(w);
+#pragma unroll
+  for (int j = 0; j < L; ++j) s[j] = mul_lazy(w[j], b[j]);
 }
 
-// state <- MDS · state. The entries are <= 26, so each output is an exact
-// integer sum below 2^74: accumulate the 32-bit halves of the inputs
-// separately (each sum < 2^41), recombine to 128 bits, reduce once.
-__device__ __forceinline__ void mds(uint64_t s[WIDTH]) {
-  uint64_t lo[WIDTH], hi[WIDTH];
-#pragma unroll
-  for (int k = 0; k < WIDTH; ++k) {
-    lo[k] = s[k] & EPS;
-    hi[k] = s[k] >> 32;
-  }
-#pragma unroll
-  for (int i = 0; i < WIDTH; ++i) {
-    uint64_t acc_lo = 0, acc_hi = 0;
-#pragma unroll
-    for (int k = 0; k < WIDTH; ++k) {
-      const uint64_t m = MDS_ROW[(k - i + WIDTH) % WIDTH];
-      acc_lo += m * lo[k];
-      acc_hi += m * hi[k];
-    }
-    // value = acc_lo + acc_hi·2^32 = r_hi·2^64 + r_lo
-    const uint64_t shifted = acc_hi << 32;
-    const uint64_t r_lo = acc_lo + shifted;
-    const uint64_t r_hi = (acc_hi >> 32) + (r_lo < shifted ? 1 : 0);
-    s[i] = reduce128(r_hi, r_lo);
-  }
-}
-
-// ark: ARK1 (7 × 12) followed by ARK2 (7 × 12), canonical.
-__device__ void permute(uint64_t s[WIDTH], const uint64_t* __restrict__ ark) {
+// The permutation of the lanes this thread holds (see mds_ark); ark_s is
+// the (2, 7, 12) round-constant table in shared memory. Any u64 inputs;
+// canonical outputs. With G > 1 every thread of the warp calls it together.
+template <int G>
+__device__ __forceinline__ void permute(uint64_t (&s)[WIDTH / G],
+                                        const uint64_t* ark_s, int t) {
+  constexpr int L = WIDTH / G;
 #pragma unroll 1
   for (int r = 0; r < ROUNDS; ++r) {
+    sbox<L>(s);
+    mds_ark<G>(s, ark_s + r * WIDTH + t * L, t);
+    inv_sbox<L>(s);
+    mds_ark<G>(s, ark_s + (ROUNDS + r) * WIDTH + t * L, t);
+  }
 #pragma unroll
-    for (int j = 0; j < WIDTH; ++j) s[j] = sbox(s[j]);
-    mds(s);
+  for (int j = 0; j < L; ++j) s[j] = canon(s[j]);
+}
+
+// Every thread of the block copies part of the round constants into shared
+// memory; returns after the block's barrier.
+__device__ __forceinline__ void load_ark(uint64_t* ark_s,
+                                         const uint64_t* __restrict__ ark) {
+  for (int q = threadIdx.x; q < ARK_SIZE; q += blockDim.x) ark_s[q] = ark[q];
+  __syncthreads();
+}
+
+// The row kernels give G threads to each row, BLOCK / G rows from row0 on.
+// The MDS shuffles need every thread of a warp, so a warp whose rows all lie
+// at or past m returns, and in the others a group past m repeats row m - 1
+// without storing it. This is the warp's first row.
+template <int G>
+__device__ __forceinline__ int64_t first_row_of_warp(int64_t row0) {
+  return row0 + (threadIdx.x & ~31) / G;
+}
+
+// Rp64_256 merge(d0, d1) state: capacity[0] = 8, then d0 ‖ d1 (8 elements
+// at pair[0..8]) in the rate.
+template <int G>
+__device__ __forceinline__ void merge_state(uint64_t (&s)[WIDTH / G],
+                                            const uint64_t* left,
+                                            const uint64_t* right, int t) {
+  constexpr int L = WIDTH / G;
 #pragma unroll
-    for (int j = 0; j < WIDTH; ++j) s[j] = gl_add(s[j], __ldg(ark + r * WIDTH + j));
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j) s[j] = inv_sbox(s[j]);
-    mds(s);
-#pragma unroll
-    for (int j = 0; j < WIDTH; ++j)
-      s[j] = gl_add(s[j], __ldg(ark + (ROUNDS + r) * WIDTH + j));
+  for (int j = 0; j < L; ++j) {
+    const int lane = t * L + j;
+    s[j] = lane == 0 ? RATE : lane < 4 ? 0 : lane < 8 ? left[lane - 4]
+                                                      : right[lane - 8];
   }
 }
 
-// K1. Replaces the TPU kernel winterfell_tpu/ops/pallas_rescue.py
-// _hash_rows_kernel_loop / _hash_rows_kernel (entry rp64_hash_rows_pallas).
-// Rp64_256 hash_elements of each row: capacity[0] = k mod p, the first rate
-// chunk written and zero-padded, later chunks added into lanes 4.., one
-// permutation per chunk, digest = state[4..8].
-// Bound on this card: operations, not bytes. A permutation is about 8.4k
-// field multiplies (7 rounds × (12·4 S-box + 12·72 inverse S-box + 2·144
-// small-constant MDS products)), each several 32-bit integer multiply-adds,
-// against 8·k bytes read and 32 written per row (48 bytes for k = 2). The
-// simple design (one thread per row, the 12-lane state in registers,
-// canonical values after every op) does nothing about that yet: no lazy
-// reduction, no cheaper MDS, no work split across the 12 lanes. That is
-// later work.
+template <int G>
+__device__ __forceinline__ void store_digest(const uint64_t (&s)[WIDTH / G],
+                                             uint64_t* out, int t) {
+  constexpr int L = WIDTH / G;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int lane = t * L + j;
+    if (lane >= 4 && lane < 8) out[lane - 4] = s[j];
+  }
+}
+
+// K1. Rp64_256 hash_elements of each row: capacity[0] = k mod p, the first
+// rate chunk written and zero-padded, later chunks added into lanes 4..,
+// one permutation per chunk, digest = state[4..8]. G threads per row. With
+// `staged` (G = 1, k >= 8) the block first copies its rows into shared
+// memory with 16-byte loads, neighbouring threads on neighbouring words, and
+// each permutation reads its row from there.
+template <int G>
 __global__ void __launch_bounds__(BLOCK)
 hash_rows_kernel(const uint64_t* __restrict__ rows, uint64_t* __restrict__ out,
-                 const uint64_t* __restrict__ ark, int64_t m, int64_t k) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= m) return;
+                 const uint64_t* __restrict__ ark, int64_t m, int64_t k,
+                 int staged) {
+  __shared__ uint64_t ark_s[ARK_SIZE];
+  extern __shared__ __align__(16) uint64_t rows_s[];
+  constexpr int L = WIDTH / G;
+  constexpr int ROWS = BLOCK / G;
+  const int t = threadIdx.x % G;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * ROWS;
+  const int64_t i_raw = row0 + threadIdx.x / G;
+  const bool store = i_raw < m;
+  const int64_t i = store ? i_raw : m - 1;  // see first_row_of_warp
   const uint64_t* row = rows + i * k;
-  uint64_t s[WIDTH];
-  s[0] = static_cast<uint64_t>(k) % P;
-  s[1] = s[2] = s[3] = 0;
-#pragma unroll
-  for (int j = 0; j < RATE; ++j) s[4 + j] = j < k ? row[j] : 0;
-  permute(s, ark);
-  for (int64_t c = RATE; c < k; c += RATE) {
-#pragma unroll
-    for (int j = 0; j < RATE; ++j)
-      if (c + j < k) s[4 + j] = gl_add(s[4 + j], row[c + j]);
-    permute(s, ark);
+  if (staged) {
+    const int64_t left = m - row0;
+    const int64_t n = (left < ROWS ? left : ROWS) * k;
+    const uint64_t* src = rows + row0 * k;
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const auto* src2 = reinterpret_cast<const ulonglong2*>(src);
+      auto* dst2 = reinterpret_cast<ulonglong2*>(rows_s);
+      for (int64_t q = threadIdx.x; q < n / 2; q += BLOCK) dst2[q] = src2[q];
+      if ((n & 1) && threadIdx.x == 0) rows_s[n - 1] = src[n - 1];
+    } else {
+      for (int64_t q = threadIdx.x; q < n; q += BLOCK) rows_s[q] = src[q];
+    }
+    row = rows_s + (i - row0) * k;
   }
+  load_ark(ark_s, ark);  // its barrier also ends the staging
+  if (first_row_of_warp<G>(row0) >= m) return;
+  uint64_t s[L];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) out[i * 4 + j] = s[4 + j];
+  for (int j = 0; j < L; ++j)
+    s[j] = t * L + j == 0 ? static_cast<uint64_t>(k) % P : 0;
+  for (int64_t c = 0; c < k; c += RATE) {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int lane = t * L + j;
+      if (lane >= 4 && c + lane - 4 < k) {
+        const uint64_t x = row[c + lane - 4];
+        s[j] = c == 0 ? x : gl_add(s[j], x);
+      }
+    }
+    permute<G>(s, ark_s, t);
+  }
+  if (store) store_digest<G>(s, out + i * 4, t);
 }
 
-// K2. Replaces the TPU kernel winterfell_tpu/ops/pallas_rescue.py
-// _merge_rows_kernel_loop / _merge_rows_kernel (entry
-// rp64_merge_rows_pallas). Rp64_256 merge(d0, d1): capacity[0] = 8,
-// state = cap ‖ d0 ‖ d1, one permutation, digest = state[4..8]. Row i of d0
-// and d1 starts at left + i·stride and right + i·stride, so one Merkle level
-// merges its sibling pairs in place (stride 8 over the level below).
-// Bound on this card: operations (one permutation, ~8.4k field multiplies,
-// per 64 bytes read and 32 written); the simple design does nothing about it
-// yet.
+// K2, one level. Rp64_256 merge(left[i], right[i]); row i of d0 and d1
+// starts at left + i·stride and right + i·stride, so a Merkle level merges
+// its sibling pairs in place (stride 8 over the level below). G threads per
+// merge. The device coin's reseed is this kernel on one row.
+template <int G>
 __global__ void __launch_bounds__(BLOCK)
 merge_rows_kernel(const uint64_t* __restrict__ left,
                   const uint64_t* __restrict__ right, uint64_t* __restrict__ out,
                   const uint64_t* __restrict__ ark, int64_t m, int64_t stride) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= m) return;
-  uint64_t s[WIDTH];
-  s[0] = RATE;
-  s[1] = s[2] = s[3] = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    s[4 + j] = left[i * stride + j];
-    s[8 + j] = right[i * stride + j];
+  __shared__ uint64_t ark_s[ARK_SIZE];
+  load_ark(ark_s, ark);
+  const int t = threadIdx.x % G;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / G);
+  if (first_row_of_warp<G>(row0) >= m) return;
+  const int64_t i_raw = row0 + threadIdx.x / G;
+  const bool store = i_raw < m;
+  const int64_t i = store ? i_raw : m - 1;
+  uint64_t s[WIDTH / G];
+  merge_state<G>(s, left + i * stride, right + i * stride, t);
+  permute<G>(s, ark_s, t);
+  if (store) store_digest<G>(s, out + i * 4, t);
+}
+
+// K2, whole trees. Each block merges the 2^b nodes [blockIdx·2^b, ..) of the
+// level `in` (contiguous rows of 4) into b levels: level l (1..b) of the
+// tree, 2^-l the size of `in`, starts (size of in − 2·its size) rows after
+// `out`, the layout of merkle levels that follow each other, largest first.
+// A level's nodes stay in shared memory for the next (two buffers in turn:
+// 2^(b-1) and 2^(b-2) nodes) and are written out. G threads per merge: the
+// block steps over a level's merges one slot per group, warps with no merge
+// left skip the step, and a barrier ends each level.
+template <int G>
+__global__ void __launch_bounds__(G == 1 ? BLOCK : TREE_THREADS_G4)
+merkle_levels_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
+                     const uint64_t* __restrict__ ark, int64_t n_in, int b) {
+  __shared__ uint64_t ark_s[ARK_SIZE];
+  extern __shared__ __align__(16) uint64_t level_s[];
+  load_ark(ark_s, ark);
+  const int t = threadIdx.x % G;
+  const int slots = blockDim.x / G;
+  const int slot = threadIdx.x / G;
+  const int warp_slot = (threadIdx.x & ~31) / G;  // the warp's first slot
+  const int64_t chunk = int64_t{1} << b;
+  uint64_t* buf[2] = {level_s, level_s + (chunk / 2) * 4};
+  const uint64_t* src = in + static_cast<int64_t>(blockIdx.x) * chunk * 4;
+  int64_t out_row = 0, size = n_in / 2;  // this level's first row and size
+  for (int l = 1; l <= b; ++l) {
+    const int merges = static_cast<int>(chunk >> l);
+    uint64_t* dst = buf[(l - 1) & 1];
+    uint64_t* dst_g = out + (out_row + static_cast<int64_t>(blockIdx.x) * merges) * 4;
+    for (int j0 = 0; j0 < merges; j0 += slots) {
+      if (j0 + warp_slot >= merges) continue;  // uniform across the warp
+      const bool store = j0 + slot < merges;
+      const int j = store ? j0 + slot : merges - 1;
+      uint64_t s[WIDTH / G];
+      merge_state<G>(s, src + j * 8, src + j * 8 + 4, t);
+      permute<G>(s, ark_s, t);
+      if (store) {
+        store_digest<G>(s, dst_g + j * 4, t);
+        if (l < b) store_digest<G>(s, dst + j * 4, t);
+      }
+    }
+    __syncthreads();
+    src = dst;
+    out_row += size;
+    size /= 2;
   }
-  permute(s, ark);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) out[i * 4 + j] = s[4 + j];
 }
 
 // The permutation of each given 12-lane state: the device coin's
 // merge_with_int (candidate states, rp64_256/mod.rs:235-254) runs through it.
-// Same bound and design as K2: one thread per state, one permutation.
+// G threads per state.
+template <int G>
 __global__ void __launch_bounds__(BLOCK)
 permute_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                     const uint64_t* __restrict__ ark, int64_t m) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * BLOCK + threadIdx.x;
-  if (i >= m) return;
-  uint64_t s[WIDTH];
+  __shared__ uint64_t ark_s[ARK_SIZE];
+  load_ark(ark_s, ark);
+  constexpr int L = WIDTH / G;
+  const int t = threadIdx.x % G;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / G);
+  if (first_row_of_warp<G>(row0) >= m) return;
+  const int64_t i_raw = row0 + threadIdx.x / G;
+  const bool store = i_raw < m;
+  const int64_t i = store ? i_raw : m - 1;
+  uint64_t s[L];
 #pragma unroll
-  for (int j = 0; j < WIDTH; ++j) s[j] = in[i * WIDTH + j];
-  permute(s, ark);
+  for (int j = 0; j < L; ++j) s[j] = in[i * WIDTH + t * L + j];
+  permute<G>(s, ark_s, t);
+  if (store) {
 #pragma unroll
-  for (int j = 0; j < WIDTH; ++j) out[i * WIDTH + j] = s[j];
+    for (int j = 0; j < L; ++j) out[i * WIDTH + t * L + j] = s[j];
+  }
 }
 
 // The draw loop of the device coin, with no TPU kernel behind it (the JAX
@@ -228,6 +538,8 @@ __global__ void coin_draw_kernel(const uint64_t* __restrict__ cands,
                                  uint64_t* __restrict__ counter_out,
                                  uint64_t counter0, int64_t t, int64_t k,
                                  int64_t d) {
+  __shared__ uint64_t ark_s[ARK_SIZE];
+  load_ark(ark_s, ark);
   if (blockIdx.x != 0 || threadIdx.x != 0) return;
   uint64_t ctr = counter0;
   int64_t j = 0;
@@ -250,7 +562,7 @@ __global__ void coin_draw_kernel(const uint64_t* __restrict__ cands,
         s[8] = ctr - hi * P;
         s[9] = hi;
         s[10] = s[11] = 0;
-        permute(s, ark);
+        permute<1>(s, ark_s, 0);
       }
       ok = true;
       for (int64_t e = 0; e < d; ++e) ok = ok && s[4 + e] < P;
@@ -265,39 +577,100 @@ __global__ void coin_draw_kernel(const uint64_t* __restrict__ cands,
   counter_out[0] = ctr;
 }
 
-inline unsigned int grid_for(int64_t m) {
-  return static_cast<unsigned int>((m + BLOCK - 1) / BLOCK);
+inline unsigned int grid_for(int64_t m, int g) {
+  const int64_t per_block = BLOCK / g;
+  return static_cast<unsigned int>((m + per_block - 1) / per_block);
 }
+
+inline int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
 }  // namespace
 
 extern "C" {
 
-// rows (m, k) row-major, out (m, 4), ark (2, 7, 12); returns cudaGetLastError().
+// rows (m, k) row-major, out (m, 4), ark (2, 7, 12); g threads per row (1
+// or 4). Returns cudaGetLastError(), or cudaErrorInvalidValue for another g.
 int wt_rp64_hash_rows(const void* rows, void* out, const void* ark, int64_t m,
-                      int64_t k, void* stream) {
-  hash_rows_kernel<<<grid_for(m), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(rows), static_cast<uint64_t*>(out),
-      static_cast<const uint64_t*>(ark), m, k);
+                      int64_t k, int g, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* r = static_cast<const uint64_t*>(rows);
+  auto* o = static_cast<uint64_t*>(out);
+  const auto* a = static_cast<const uint64_t*>(ark);
+  if (g == 1) {
+    const size_t bytes = static_cast<size_t>(BLOCK) * k * 8;
+    const int staged = k >= RATE && bytes <= STAGE_BYTES;
+    hash_rows_kernel<1><<<grid_for(m, 1), BLOCK, staged ? bytes : 0, s>>>(
+        r, o, a, m, k, staged);
+  } else if (g == 4) {
+    hash_rows_kernel<4><<<grid_for(m, 4), BLOCK, 0, s>>>(r, o, a, m, k, 0);
+  } else {
+    return invalid();
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // left/right rows of 4 at a row stride of `stride` elements, out (m, 4).
 int wt_rp64_merge_rows(const void* left, const void* right, void* out,
-                       const void* ark, int64_t m, int64_t stride,
+                       const void* ark, int64_t m, int64_t stride, int g,
                        void* stream) {
-  merge_rows_kernel<<<grid_for(m), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(left), static_cast<const uint64_t*>(right),
-      static_cast<uint64_t*>(out), static_cast<const uint64_t*>(ark), m, stride);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* l = static_cast<const uint64_t*>(left);
+  const auto* r = static_cast<const uint64_t*>(right);
+  auto* o = static_cast<uint64_t*>(out);
+  const auto* a = static_cast<const uint64_t*>(ark);
+  if (g == 1)
+    merge_rows_kernel<1><<<grid_for(m, 1), BLOCK, 0, s>>>(l, r, o, a, m, stride);
+  else if (g == 4)
+    merge_rows_kernel<4><<<grid_for(m, 4), BLOCK, 0, s>>>(l, r, o, a, m, stride);
+  else
+    return invalid();
   return static_cast<int>(cudaGetLastError());
 }
 
-// states (m, 12) row-major -> out (m, 12).
+// `levels` Merkle levels over the 2^log_n nodes of `in` (contiguous rows of
+// 4), written to `out` largest first, one level after another; each block
+// takes 2^levels nodes, so 2^(log_n - levels) blocks. levels in 1..10 (the
+// two level buffers of a block, 24·2^levels bytes, stay within 24 KiB).
+int wt_rp64_merkle_levels(const void* in, void* out, const void* ark,
+                          int log_n, int levels, int g, void* stream) {
+  if (levels < 1 || levels > 10 || levels > log_n || log_n > 40)
+    return invalid();
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* i = static_cast<const uint64_t*>(in);
+  auto* o = static_cast<uint64_t*>(out);
+  const auto* a = static_cast<const uint64_t*>(ark);
+  const int64_t chunk = int64_t{1} << levels;
+  const auto grid = static_cast<unsigned int>((int64_t{1} << log_n) / chunk);
+  const size_t bytes = static_cast<size_t>(chunk / 2 + chunk / 4) * 32;
+  if (g == 1) {
+    merkle_levels_kernel<1><<<grid, BLOCK, bytes, s>>>(i, o, a, int64_t{1} << log_n,
+                                                      levels);
+  } else if (g == 4) {
+    // one group per merge of the block's first level, whole warps, at most
+    // TREE_THREADS_G4
+    int64_t threads = (chunk / 2) * 4;
+    threads = threads < 32 ? 32 : threads > TREE_THREADS_G4 ? TREE_THREADS_G4 : threads;
+    merkle_levels_kernel<4><<<grid, static_cast<unsigned int>(threads), bytes, s>>>(
+        i, o, a, int64_t{1} << log_n, levels);
+  } else {
+    return invalid();
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// states (m, 12) row-major -> out (m, 12); g threads per state (1 or 4).
 int wt_rp64_permute_rows(const void* states, void* out, const void* ark,
-                         int64_t m, void* stream) {
-  permute_rows_kernel<<<grid_for(m), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(states), static_cast<uint64_t*>(out),
-      static_cast<const uint64_t*>(ark), m);
+                         int64_t m, int g, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* in = static_cast<const uint64_t*>(states);
+  auto* o = static_cast<uint64_t*>(out);
+  const auto* a = static_cast<const uint64_t*>(ark);
+  if (g == 1)
+    permute_rows_kernel<1><<<grid_for(m, 1), BLOCK, 0, s>>>(in, o, a, m);
+  else if (g == 4)
+    permute_rows_kernel<4><<<grid_for(m, 4), BLOCK, 0, s>>>(in, o, a, m);
+  else
+    return invalid();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,8 +19,9 @@ the device.
 These functions are plain tensor code that runs wherever its inputs lie,
 except for three that dispatch on the device: ``gl_mul`` (every field
 multiply) to the kernel of ``ops/field_kernels.py``, and the Rescue row hash
-and 2-to-1 merge to those of ``ops/rescue.py`` — the hand-written CUDA kernel
-for a CUDA tensor, its plain torch version for a CPU tensor.
+and 2-to-1 merge (per level and over Merkle trees) to those of
+``ops/rescue.py`` — the hand-written CUDA kernel for a CUDA tensor, its plain
+torch version for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -522,22 +523,12 @@ def rp64_hash_rows(rows):
     return rescue.rp64_hash_rows(rows.contiguous())
 
 
-def rp64_merge_rows(left, right):
-    """merge of digest pairs: (m, 4), (m, 4) → (m, 4)."""
-    return rescue.rp64_merge_rows(left, right)
-
-
 def merkle_levels_rp64(leaves) -> List[torch.Tensor]:
     """Internal Merkle levels from leaf digests (m, 4), largest first: level
     of size s holds heap nodes [s, 2s), the root alone in the last (the
-    reference layout, crypto/src/merkle/mod.rs:344-368). One merge launch per
-    level, reading sibling pairs as strided views of the level below."""
-    levels = []
-    current = leaves
-    while current.shape[0] > 1:
-        current = rp64_merge_rows(current[0::2], current[1::2])
-        levels.append(current)
-    return levels
+    reference layout, crypto/src/merkle/mod.rs:344-368). On the card a few
+    launches of the tree kernel build them all."""
+    return rescue.rp64_merkle_levels(leaves.contiguous())
 
 
 # ================================================================================

@@ -1,20 +1,25 @@
-"""Rp64_256 row hashing (K1) and 2-to-1 merge (K2): the port of the TPU's
-Pallas kernels in winterfell_tpu/ops/pallas_rescue.py. (The same CUDA source
-holds the device coin's two kernels; their wrappers are in
-ops/device_coin.py.)
+"""Rp64_256 row hashing (K1) and 2-to-1 merge (K2), per level and over whole
+Merkle trees: the port of the TPU's Pallas kernels in
+winterfell_tpu/ops/pallas_rescue.py. (The same CUDA source holds the device
+coin's two kernels; their wrappers are in ops/device_coin.py.)
 
 Each function has three parts:
 
-- the wrapper (``rp64_hash_rows``, ``rp64_merge_rows``): for a CUDA tensor it
-  launches the hand-written kernel of ``csrc/rescue.cu`` on the current
-  stream, without synchronising, and adds one to its count in ``LAUNCHES``;
-  for a CPU tensor it runs the plain version; any other device raises;
+- the wrapper (``rp64_hash_rows``, ``rp64_merge_rows``,
+  ``rp64_merkle_levels``): for a CUDA tensor it launches the hand-written
+  kernel of ``csrc/rescue.cu`` on the current stream, without synchronising,
+  and adds one to its count in ``LAUNCHES`` per launch; for a CPU tensor it
+  runs the plain version; any other device raises;
 - the plain PyTorch version (``*_plain``) of the same function, vectorised
   over rows and the 12 state lanes. The CPU tests use it, and
   ``chip_smoke.py`` holds the kernel against it on the card. Its field
   multiplies are ``gl_mul_plain``, never the routed ``gl_mul``, so on the
   card it runs no kernel of its own;
 - the launch count, a plain integer per kernel.
+
+A launch with few permutations cannot fill the card with one thread per
+permutation, and then waits on one permutation's latency: the wrappers split
+each permutation over 4 threads there (``_lanes``).
 
 Inputs are int64 tensors of canonical Goldilocks elements (u64 bit patterns).
 """
@@ -35,12 +40,45 @@ P = GOLDILOCKS_P
 _WIDTH, _RATE, _ROUNDS = 12, 8, 7
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"rp64_hash_rows": 0, "rp64_merge_rows": 0}
+LAUNCHES: Dict[str, int] = {"rp64_hash_rows": 0, "rp64_merge_rows": 0,
+                            "rp64_merkle_tree": 0}
+
+# Threads per permutation. 2^16 permutations at one thread each (12 lanes in
+# registers) already give every SM of the card several waves of warps; below
+# that a launch waits on the latency of its permutations, and 4 threads of 3
+# lanes each cut the critical path of one to about a quarter.
+_FILL = 1 << 16
+# Merkle trees (rp64_merkle_levels): a block of a multi-level launch merges
+# 2^_TREE_CHUNK_LOG nodes into that many levels; once at most
+# 2^_TREE_TAIL_LOG nodes are left, one block of 4-thread groups (one group
+# per merge of its first level) finishes the tree.
+_TREE_CHUNK_LOG = 10
+_TREE_TAIL_LOG = 8
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _lanes(m: int) -> int:
+    """Threads per permutation for a launch of m permutations: 1 or 4."""
+    return 1 if m >= _FILL else 4
+
+
+def _tree_plan(log_n: int):
+    """The launches that build the levels over 2^log_n leaves:
+    [(log2 of the input level's size, levels it merges, threads per
+    merge)], largest level first. Each launch but the last leaves at least
+    2^_TREE_TAIL_LOG nodes; the last is one block."""
+    plan = []
+    while log_n > _TREE_TAIL_LOG:
+        b = min(_TREE_CHUNK_LOG, log_n - _TREE_TAIL_LOG)
+        plan.append((log_n, b, _lanes(1 << (log_n - 1))))
+        log_n -= b
+    if log_n > 0:
+        plan.append((log_n, log_n, 4))
+    return plan
 
 
 def _i64(rows) -> np.ndarray:
@@ -152,6 +190,17 @@ def rp64_merge_rows_plain(left, right):
     return state[:, 4:8].contiguous()
 
 
+def rp64_merkle_levels_plain(leaves):
+    """Internal Merkle levels over (n, 4) leaf digests, largest first, root
+    last: the per-level plain merge of sibling pairs."""
+    levels = []
+    current = leaves
+    while current.shape[0] > 1:
+        current = rp64_merge_rows_plain(current[0::2], current[1::2])
+        levels.append(current)
+    return levels
+
+
 # ================================================================================
 # Kernel wrappers
 # ================================================================================
@@ -166,11 +215,14 @@ def _kernels():
 
         lib = _build.load("rescue")
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
-        lib.wt_rp64_hash_rows.argtypes = [vp, vp, vp, i64, i64, vp]
+        i32 = ctypes.c_int
+        lib.wt_rp64_hash_rows.argtypes = [vp, vp, vp, i64, i64, i32, vp]
         lib.wt_rp64_hash_rows.restype = ctypes.c_int
-        lib.wt_rp64_merge_rows.argtypes = [vp, vp, vp, vp, i64, i64, vp]
+        lib.wt_rp64_merge_rows.argtypes = [vp, vp, vp, vp, i64, i64, i32, vp]
         lib.wt_rp64_merge_rows.restype = ctypes.c_int
-        lib.wt_rp64_permute_rows.argtypes = [vp, vp, vp, i64, vp]
+        lib.wt_rp64_merkle_levels.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+        lib.wt_rp64_merkle_levels.restype = ctypes.c_int
+        lib.wt_rp64_permute_rows.argtypes = [vp, vp, vp, i64, i32, vp]
         lib.wt_rp64_permute_rows.restype = ctypes.c_int
         lib.wt_rp64_coin_draw.argtypes = [vp, vp, vp, vp, vp, ctypes.c_uint64,
                                           i64, i64, i64, vp]
@@ -216,7 +268,7 @@ def rp64_hash_rows(rows):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wt_rp64_hash_rows(rows.data_ptr(), out.data_ptr(),
                                     _table("ark", rows.device).data_ptr(),
-                                    m, k, stream)
+                                    m, k, _lanes(m), stream)
     _raise_on(err, "rp64_hash_rows")
     LAUNCHES["rp64_hash_rows"] += 1
     return out
@@ -252,7 +304,41 @@ def rp64_merge_rows(left, right):
         err = lib.wt_rp64_merge_rows(left.data_ptr(), right.data_ptr(),
                                      out.data_ptr(),
                                      _table("ark", left.device).data_ptr(),
-                                     m, stride, stream)
+                                     m, stride, _lanes(m), stream)
     _raise_on(err, "rp64_merge_rows")
     LAUNCHES["rp64_merge_rows"] += 1
     return out
+
+
+def rp64_merkle_levels(leaves):
+    """K2 over a whole tree: the internal Merkle levels over (n, 4) leaf
+    digests, n a power of two, largest first, root last (the level of size
+    s holds heap nodes [s, 2s), crypto/src/merkle/mod.rs:344-368). On the
+    card the levels are consecutive views of one (n - 1, 4) buffer, built in
+    len(_tree_plan) launches; their offsets come from the shapes alone."""
+    _check(leaves, "rp64_merkle_levels")
+    n = leaves.shape[0]
+    if leaves.shape[1] != 4 or n < 1 or n & (n - 1):
+        raise ValueError("rp64_merkle_levels: expected (n, 4) leaves with n a "
+                         f"power of two, got {tuple(leaves.shape)}")
+    if not leaves.is_contiguous():
+        raise ValueError("rp64_merkle_levels: leaves must be contiguous")
+    if _device_kind(leaves) == "cpu":
+        return rp64_merkle_levels_plain(leaves)
+    buf = torch.empty((n - 1, 4), dtype=torch.int64, device=leaves.device)
+    log_n = n.bit_length() - 1
+    base, row = buf.data_ptr(), 4 * buf.element_size()
+    lib = _kernels()
+    with torch.cuda.device(leaves.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        ark = _table("ark", leaves.device).data_ptr()
+        for lg, b, g in _tree_plan(log_n):
+            # the level of size s sits at rows [n - 2s, n - s) of buf
+            src = (leaves.data_ptr() if lg == log_n else
+                   base + row * (n - (2 << lg)))
+            err = lib.wt_rp64_merkle_levels(src, base + row * (n - (1 << lg)),
+                                            ark, lg, b, g, stream)
+            _raise_on(err, "rp64_merkle_levels")
+            LAUNCHES["rp64_merkle_tree"] += 1
+    return [buf[n - 2 * s : n - s] for s in (n >> i for i in
+                                             range(1, log_n + 1))]
