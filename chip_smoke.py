@@ -13,8 +13,7 @@ Phases, each printed with its elapsed seconds as it ends:
    side of the one-block tail, 2^21), K3 field multiply (contiguous,
    broadcast, strided, Python-int operands), and the device coin's
    permute_rows and draw kernels; the Rescue kernels on random values and on
-   corner sets (0, 1, 2^32 - 1, 2^32, 2^63, p - 2^32, p - 2, p - 1), with
-   one thread and with four threads per permutation.
+   corner sets (0, 1, 2^32 - 1, 2^32, 2^63, p - 2^32, p - 2, p - 1).
 3. card vs CPU: a fib proof at trace 2^10 on the card and on the CPU, on the
    resident route and on the phased route; the four Proof.to_bytes() must be
    equal and verify() must accept the proof.
@@ -26,13 +25,13 @@ Phases, each printed with its elapsed seconds as it ends:
    per-phase split. The resident proves run their device part under
    torch.cuda.set_sync_debug_mode("error"): any host synchronisation there
    fails the run. Each kernel must have launched during the first timed
-   resident prove.
+   resident prove, and K2 (per-level and tree kernel together) at most 30
+   times per prove on either route.
 5. kernel times at the main path's shapes against their bounds: device time
    per launch from launches replayed in a CUDA graph, beside the time per
    call when the wrapper is called back to back from Python; the whole
-   2^21-leaf tree, one-row K1 and K2 latency, and the Rescue kernels with
-   one and with four threads per permutation at the same shapes (the rule
-   of ops/rescue.py picks one).
+   2^21-leaf tree, one-row K1 and K2 latency and K1 at the composition
+   width.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict. Any failure exits non-zero before that verdict. Without a
@@ -41,7 +40,6 @@ CUDA card the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import statistics
@@ -101,22 +99,6 @@ def _corner_field(shape, device):
     j = np.arange(shape[1])[None, :]
     idx = np.where(r < len(c), r, 3 * r + 5 * j) % len(c)
     return torch.from_numpy(c[idx].view(np.int64)).to(device)
-
-
-@contextlib.contextmanager
-def _lanes_forced(g):
-    """Every Rescue wrapper launch inside takes g threads per permutation
-    (the tree's one-block tail keeps 4); g None keeps the rule of
-    ops/rescue.py."""
-    from winterfell_tpu_torch.ops import rescue
-
-    saved = rescue._FILL
-    if g is not None:
-        rescue._FILL = 0 if g == 1 else 1 << 62
-    try:
-        yield
-    finally:
-        rescue._FILL = saved
 
 
 def _max_abs_err(a, b) -> float:
@@ -335,8 +317,7 @@ def main() -> int:
     # composition columns of the main path's AIR (its LDE rows are 3·that)
     comp_air = FibSmallAir(TraceInfo(2, 1 << log2_trace), 1, options)
     comp_cols = comp_air.context.num_constraint_composition_columns()
-    # the Rescue kernels on random and corner values: with the wrappers' rule
-    # for threads per permutation, then with 1 and with 4 forced
+    # the Rescue kernels on random and corner values
     tail = 1 << rescue._TREE_TAIL_LOG
     chunk = 1 << rescue._TREE_CHUNK_LOG
     both = [_rng_field, lambda _, shape, where: _corner_field(shape, where)]
@@ -371,10 +352,7 @@ def main() -> int:
                 torch.zeros((0, 4), dtype=torch.int64, device=dev))
 
     for name, fn, plain, args, shape in cases:
-        want = flat(plain(*args))
-        for g in ((None,) if REHEARSAL else (None, 1, 4)):
-            with _lanes_forced(g):
-                check(name, flat(fn(*args)), want, (shape, "lanes", g))
+        check(name, flat(fn(*args)), flat(plain(*args)), shape)
     # the main path's shapes, with the rule: a Merkle level of the LDE, the
     # whole 2^21-leaf tree, and the row hashes of the trace LDE, the
     # composition LDE, a FRI layer, and the 12-wide rows of the loop-variant
@@ -584,41 +562,23 @@ def main() -> int:
                 "plain_ms": _time_ms(plain, 1), "bound_ms": bound[0],
                 "bound_by": bound[1]}
 
-    def lanes_entry(shape, call, plain, bound):
-        """entry() of call(None), a Rescue wrapper under the rule of
-        ops/rescue.py, plus its kernel time with 1 and with 4 threads per
-        permutation forced."""
-        e = entry(shape, lambda: call(None), plain, bound)
-        e["ms_by_lanes"] = {}
-        for g in (1, 4):
-            e["ms_by_lanes"][str(g)] = _kernel_ms(lambda: call(g), reps)
-        return e
-
-    def forced(fn, *args):
-        def call(g):
-            with _lanes_forced(g):
-                return fn(*args)
-        return call
-
     def hash_entry(m, k):
         x = _rng_field(rng, (m, k), dev)
-        return lanes_entry((m, k), forced(rescue.rp64_hash_rows, x),
-                           lambda: rescue.rp64_hash_rows_plain(x),
-                           _bound_hash(m, k))
+        return entry((m, k), lambda: rescue.rp64_hash_rows(x),
+                     lambda: rescue.rp64_hash_rows_plain(x), _bound_hash(m, k))
 
     def merge_entry(m):
         level = _rng_field(rng, (2 * m, 4), dev)
         l, r = level[0::2], level[1::2]
-        return lanes_entry((m, 4), forced(rescue.rp64_merge_rows, l, r),
-                           lambda: rescue.rp64_merge_rows_plain(l, r),
-                           _bound_merge(m))
+        return entry((m, 4), lambda: rescue.rp64_merge_rows(l, r),
+                     lambda: rescue.rp64_merge_rows_plain(l, r),
+                     _bound_merge(m))
 
     def tree_entry(n):
         leaves = _rng_field(rng, (n, 4), dev)
-        return lanes_entry(("leaves", n),
-                           forced(rescue.rp64_merkle_levels, leaves),
-                           lambda: rescue.rp64_merkle_levels_plain(leaves),
-                           _bound_tree(n))
+        return entry(("leaves", n), lambda: rescue.rp64_merkle_levels(leaves),
+                     lambda: rescue.rp64_merkle_levels_plain(leaves),
+                     _bound_tree(n))
 
     def mul_entry(x, y, shape):
         return entry(shape, lambda: k3(x, y),
@@ -627,9 +587,9 @@ def main() -> int:
 
     def permute_entry(m):
         st = _rng_field(rng, (m, 12), dev)
-        return lanes_entry((m, 12), forced(device_coin.permute_rows, st),
-                           lambda: device_coin.permute_rows_plain(st),
-                           _bound_permute(m))
+        return entry((m, 12), lambda: device_coin.permute_rows(st),
+                     lambda: device_coin.permute_rows_plain(st),
+                     _bound_permute(m))
 
     def draw_entry(k, d):
         cands = next_candidates(seed, 0, k)
@@ -686,14 +646,10 @@ def main() -> int:
             "library_ms": None, "shape": main["shape"], "shapes": shapes})
     for kr in kernels:
         for s in kr["shapes"]:
-            lanes = s.get("ms_by_lanes")
             log(f"{kr['name']} {s['shape']}: {s['ms']:.4f} ms (launched "
                 f"back to back from Python {s['host_ms']:.4f} ms), plain "
                 f"{s['plain_ms']:.1f} ms, bound {s['bound_ms']:.4f} ms "
-                f"({s['bound_by']})" + ("" if lanes is None else
-                                       f"; 1 thread per permutation "
-                                       f"{lanes['1']:.4f} ms, 4 threads "
-                                       f"{lanes['4']:.4f} ms"))
+                f"({s['bound_by']})")
     phase("5 kernel times", t0)
 
     print(smi, flush=True)

@@ -107,14 +107,13 @@ def test_merkle_levels_match_jax_engine():
     for log_n in range(0, 26):
         plan = rescue._tree_plan(log_n)
         lg = log_n
-        for i, (src, b, g) in enumerate(plan):
+        for i, (src, b) in enumerate(plan):
             assert src == lg and 1 <= b <= rescue._TREE_CHUNK_LOG
             lg -= b
-            assert g in (1, 4)
             if i < len(plan) - 1:
                 assert 1 << lg >= tail
             else:
-                assert lg == 0 and (1 << src) <= tail and g == 4
+                assert lg == 0 and (1 << src) <= tail
         assert lg == 0 and (log_n > 0) == bool(plan)
     # the trees of a resident 2^18 fib prove (LDE 2^21, five FRI layers)
     assert sum(len(rescue._tree_plan(n)) for n in (21, 21, 18, 15, 12, 9, 6)) \

@@ -14,7 +14,10 @@
 // needs 7·12·76 = 6,384 field multiplies (65 of every 76 are squarings) and
 // 14 MDS products, about 48k IMADs, against at most 192 bytes moved: the
 // bytes take a few percent of the IMAD time at every shape of the main path.
-// What each choice of the one permutation body below does about it:
+// In SASS the IMAD pipe and the ALU pipe (adds, compares, selects, shifts)
+// each take a warp instruction every other cycle, so the instructions of
+// both pipes count. What each choice of the one permutation body below does
+// about it:
 //
 // - Lazy values. Between operations a value is any u64 congruent to the
 //   field element (as the TPU kernel's values, pallas_rescue.py:15); the
@@ -25,32 +28,30 @@
 //   kernel's < p test (the pallas_rescue.py:399-411 trap).
 // - Carry chains in PTX. Written in C++ on u64, the products and the
 //   reduction compiled to 64-bit shifts, compares and selects: 34 SASS
-//   instructions per squaring, two thirds of them on the ALU pipe, which
-//   then bounds the kernel (16 lanes per SM quarter, like the IMAD pipe).
-//   The products and reductions here are 32-bit multiply-adds and add/sub
-//   with carry (mul_lazy, sqr_lazy, reduce_lazy): no compare, no select.
+//   instructions per squaring, two thirds of them on the ALU pipe. Here the
+//   products are 32-bit multiply-adds with carry (mad.lo.cc / madc.hi.cc,
+//   the IMAD pipe) and the reduction add/sub with carry: 22 per squaring,
+//   about half on each pipe.
 // - Squarings take 3 partial products, not 4 (sqr_lazy; the TPU kernel's
 //   _gl_sqr): a0², a1², and a0·a1 added twice.
 // - The MDS is the circulant product written out with compile-time
 //   coefficients (mds_coef, all <= 26): per output 24 IMAD.WIDE.U32 with an
-//   immediate multiplier accumulate the 32-bit halves of the inputs, so the
-//   MDS runs on the IMAD pipe while the reductions run on the ALU pipe. The
+//   immediate multiplier on the 32-bit halves of the inputs. The
 //   frequency-domain form (_mds12_freq, goldilocks.py:777) trades 288 of
 //   those for about 90 constant products and 400 64-bit adds and subtracts
-//   of the two halves, each two ALU instructions: more instructions, all on
-//   the busier pipe. The round constant is added in the same recombine.
+//   of the two halves, each two ALU instructions: more instructions, most
+//   on the ALU pipe. The round constant is added in the same recombine.
 // - The round constants are copied into shared memory once per block; a
 //   round reads its 12 from there.
-// - Lanes across threads (template parameter G): G = 1 holds the whole
-//   state in one thread (12 independent lanes give the S-box chains their
-//   instruction-level parallelism; the most throughput per thread). G = 4
-//   splits one permutation over 4 neighbouring threads of a warp, 3 lanes
-//   each: the S-boxes run lane-parallel and the MDS fetches the 9 lanes it
-//   lacks with __shfl_sync inside the group. A lone permutation then takes
-//   about a quarter of the instructions on its critical path, which is what
-//   the coin's serial steps, the one-row hashes and the top levels of a
-//   Merkle tree wait on. The wrappers (ops/rescue.py) pick G from the row
-//   count.
+// - Four threads per permutation (GROUP). Each of 4 neighbouring threads of
+//   a warp holds 3 lanes of the state: the S-boxes run lane-parallel and the
+//   MDS fetches the 9 lanes it lacks with __shfl_sync. A lone permutation
+//   then waits on about a quarter of the instructions (the coin's serial
+//   steps, the one-row hashes, the small levels of a tree), and with 48
+//   registers a thread leaves room for many warps on an SM. The whole state
+//   in one thread needs 128 registers and measured slower at every shape of
+//   the main path, the largest included (PERF.md, PR 5), so every kernel
+//   but the draw kernel's rare own permutations takes 4.
 // - Whole trees in a few launches (merkle_levels_kernel): a block merges
 //   2^b consecutive nodes of a level into b levels, keeping each level in
 //   shared memory for the next and writing it out; one block finishes the
@@ -72,9 +73,10 @@ constexpr int WIDTH = 12;
 constexpr int RATE = 8;
 constexpr int ROUNDS = 7;
 constexpr int ARK_SIZE = 2 * ROUNDS * WIDTH;  // ARK1 then ARK2, (2, 7, 12)
+constexpr int GROUP = 4;                      // threads per permutation
+constexpr int LANES = WIDTH / GROUP;          // state lanes per thread
 constexpr int BLOCK = 128;                    // threads of the row kernels
-constexpr int TREE_THREADS_G4 = 512;          // most threads of a G = 4 tree block
-constexpr int STAGE_BYTES = 40 * 1024;        // K1 rows staged in shared memory
+constexpr int TREE_THREADS = 512;             // most threads of a tree block
 
 // The circulant MDS matrix's first row (rescue_constants.py RP64_256_MDS[0]);
 // output i is sum_d MDS_ROW[d] · state[(i + d) mod 12].
@@ -331,117 +333,89 @@ __device__ __forceinline__ void load_ark(uint64_t* ark_s,
   __syncthreads();
 }
 
-// The row kernels give G threads to each row, BLOCK / G rows from row0 on.
-// The MDS shuffles need every thread of a warp, so a warp whose rows all lie
-// at or past m returns, and in the others a group past m repeats row m - 1
-// without storing it. This is the warp's first row.
-template <int G>
+// The row kernels give GROUP threads to each row, BLOCK / GROUP rows from
+// row0 on. The MDS shuffles need every thread of a warp, so a warp whose rows
+// all lie at or past m returns, and in the others a group past m repeats row
+// m - 1 without storing it. This is the warp's first row.
 __device__ __forceinline__ int64_t first_row_of_warp(int64_t row0) {
-  return row0 + (threadIdx.x & ~31) / G;
+  return row0 + (threadIdx.x & ~31) / GROUP;
 }
 
-// Rp64_256 merge(d0, d1) state: capacity[0] = 8, then d0 ‖ d1 (8 elements
-// at pair[0..8]) in the rate.
-template <int G>
-__device__ __forceinline__ void merge_state(uint64_t (&s)[WIDTH / G],
+// Rp64_256 merge(d0, d1) state: capacity[0] = 8, then d0 ‖ d1 in the rate.
+__device__ __forceinline__ void merge_state(uint64_t (&s)[LANES],
                                             const uint64_t* left,
                                             const uint64_t* right, int t) {
-  constexpr int L = WIDTH / G;
 #pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const int lane = t * L + j;
+  for (int j = 0; j < LANES; ++j) {
+    const int lane = t * LANES + j;
     s[j] = lane == 0 ? RATE : lane < 4 ? 0 : lane < 8 ? left[lane - 4]
                                                       : right[lane - 8];
   }
 }
 
-template <int G>
-__device__ __forceinline__ void store_digest(const uint64_t (&s)[WIDTH / G],
+__device__ __forceinline__ void store_digest(const uint64_t (&s)[LANES],
                                              uint64_t* out, int t) {
-  constexpr int L = WIDTH / G;
 #pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const int lane = t * L + j;
+  for (int j = 0; j < LANES; ++j) {
+    const int lane = t * LANES + j;
     if (lane >= 4 && lane < 8) out[lane - 4] = s[j];
   }
 }
 
 // K1. Rp64_256 hash_elements of each row: capacity[0] = k mod p, the first
 // rate chunk written and zero-padded, later chunks added into lanes 4..,
-// one permutation per chunk, digest = state[4..8]. G threads per row. With
-// `staged` (G = 1, k >= 8) the block first copies its rows into shared
-// memory with 16-byte loads, neighbouring threads on neighbouring words, and
-// each permutation reads its row from there.
-template <int G>
+// one permutation per chunk, digest = state[4..8]. Each thread reads the
+// row elements of its own lanes.
 __global__ void __launch_bounds__(BLOCK)
 hash_rows_kernel(const uint64_t* __restrict__ rows, uint64_t* __restrict__ out,
-                 const uint64_t* __restrict__ ark, int64_t m, int64_t k,
-                 int staged) {
+                 const uint64_t* __restrict__ ark, int64_t m, int64_t k) {
   __shared__ uint64_t ark_s[ARK_SIZE];
-  extern __shared__ __align__(16) uint64_t rows_s[];
-  constexpr int L = WIDTH / G;
-  constexpr int ROWS = BLOCK / G;
-  const int t = threadIdx.x % G;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * ROWS;
-  const int64_t i_raw = row0 + threadIdx.x / G;
+  load_ark(ark_s, ark);
+  const int t = threadIdx.x % GROUP;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / GROUP);
+  if (first_row_of_warp(row0) >= m) return;
+  const int64_t i_raw = row0 + threadIdx.x / GROUP;
   const bool store = i_raw < m;
-  const int64_t i = store ? i_raw : m - 1;  // see first_row_of_warp
+  const int64_t i = store ? i_raw : m - 1;
   const uint64_t* row = rows + i * k;
-  if (staged) {
-    const int64_t left = m - row0;
-    const int64_t n = (left < ROWS ? left : ROWS) * k;
-    const uint64_t* src = rows + row0 * k;
-    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-      const auto* src2 = reinterpret_cast<const ulonglong2*>(src);
-      auto* dst2 = reinterpret_cast<ulonglong2*>(rows_s);
-      for (int64_t q = threadIdx.x; q < n / 2; q += BLOCK) dst2[q] = src2[q];
-      if ((n & 1) && threadIdx.x == 0) rows_s[n - 1] = src[n - 1];
-    } else {
-      for (int64_t q = threadIdx.x; q < n; q += BLOCK) rows_s[q] = src[q];
-    }
-    row = rows_s + (i - row0) * k;
-  }
-  load_ark(ark_s, ark);  // its barrier also ends the staging
-  if (first_row_of_warp<G>(row0) >= m) return;
-  uint64_t s[L];
+  uint64_t s[LANES];
 #pragma unroll
-  for (int j = 0; j < L; ++j)
-    s[j] = t * L + j == 0 ? static_cast<uint64_t>(k) % P : 0;
+  for (int j = 0; j < LANES; ++j)
+    s[j] = t * LANES + j == 0 ? static_cast<uint64_t>(k) % P : 0;
   for (int64_t c = 0; c < k; c += RATE) {
 #pragma unroll
-    for (int j = 0; j < L; ++j) {
-      const int lane = t * L + j;
+    for (int j = 0; j < LANES; ++j) {
+      const int lane = t * LANES + j;
       if (lane >= 4 && c + lane - 4 < k) {
         const uint64_t x = row[c + lane - 4];
         s[j] = c == 0 ? x : gl_add(s[j], x);
       }
     }
-    permute<G>(s, ark_s, t);
+    permute<GROUP>(s, ark_s, t);
   }
-  if (store) store_digest<G>(s, out + i * 4, t);
+  if (store) store_digest(s, out + i * 4, t);
 }
 
 // K2, one level. Rp64_256 merge(left[i], right[i]); row i of d0 and d1
 // starts at left + i·stride and right + i·stride, so a Merkle level merges
-// its sibling pairs in place (stride 8 over the level below). G threads per
-// merge. The device coin's reseed is this kernel on one row.
-template <int G>
+// its sibling pairs in place (stride 8 over the level below). The device
+// coin's reseed is this kernel on one row.
 __global__ void __launch_bounds__(BLOCK)
 merge_rows_kernel(const uint64_t* __restrict__ left,
                   const uint64_t* __restrict__ right, uint64_t* __restrict__ out,
                   const uint64_t* __restrict__ ark, int64_t m, int64_t stride) {
   __shared__ uint64_t ark_s[ARK_SIZE];
   load_ark(ark_s, ark);
-  const int t = threadIdx.x % G;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / G);
-  if (first_row_of_warp<G>(row0) >= m) return;
-  const int64_t i_raw = row0 + threadIdx.x / G;
+  const int t = threadIdx.x % GROUP;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / GROUP);
+  if (first_row_of_warp(row0) >= m) return;
+  const int64_t i_raw = row0 + threadIdx.x / GROUP;
   const bool store = i_raw < m;
   const int64_t i = store ? i_raw : m - 1;
-  uint64_t s[WIDTH / G];
-  merge_state<G>(s, left + i * stride, right + i * stride, t);
-  permute<G>(s, ark_s, t);
-  if (store) store_digest<G>(s, out + i * 4, t);
+  uint64_t s[LANES];
+  merge_state(s, left + i * stride, right + i * stride, t);
+  permute<GROUP>(s, ark_s, t);
+  if (store) store_digest(s, out + i * 4, t);
 }
 
 // K2, whole trees. Each block merges the 2^b nodes [blockIdx·2^b, ..) of the
@@ -449,20 +423,19 @@ merge_rows_kernel(const uint64_t* __restrict__ left,
 // tree, 2^-l the size of `in`, starts (size of in − 2·its size) rows after
 // `out`, the layout of merkle levels that follow each other, largest first.
 // A level's nodes stay in shared memory for the next (two buffers in turn:
-// 2^(b-1) and 2^(b-2) nodes) and are written out. G threads per merge: the
-// block steps over a level's merges one slot per group, warps with no merge
-// left skip the step, and a barrier ends each level.
-template <int G>
-__global__ void __launch_bounds__(G == 1 ? BLOCK : TREE_THREADS_G4)
+// 2^(b-1) and 2^(b-2) nodes) and are written out. The block steps over a
+// level's merges one slot (a group of GROUP threads) per merge, warps with no
+// merge left skip the step, and a barrier ends each level.
+__global__ void __launch_bounds__(TREE_THREADS)
 merkle_levels_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                      const uint64_t* __restrict__ ark, int64_t n_in, int b) {
   __shared__ uint64_t ark_s[ARK_SIZE];
   extern __shared__ __align__(16) uint64_t level_s[];
   load_ark(ark_s, ark);
-  const int t = threadIdx.x % G;
-  const int slots = blockDim.x / G;
-  const int slot = threadIdx.x / G;
-  const int warp_slot = (threadIdx.x & ~31) / G;  // the warp's first slot
+  const int t = threadIdx.x % GROUP;
+  const int slots = blockDim.x / GROUP;
+  const int slot = threadIdx.x / GROUP;
+  const int warp_slot = (threadIdx.x & ~31) / GROUP;  // the warp's first slot
   const int64_t chunk = int64_t{1} << b;
   uint64_t* buf[2] = {level_s, level_s + (chunk / 2) * 4};
   const uint64_t* src = in + static_cast<int64_t>(blockIdx.x) * chunk * 4;
@@ -475,12 +448,12 @@ merkle_levels_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out
       if (j0 + warp_slot >= merges) continue;  // uniform across the warp
       const bool store = j0 + slot < merges;
       const int j = store ? j0 + slot : merges - 1;
-      uint64_t s[WIDTH / G];
-      merge_state<G>(s, src + j * 8, src + j * 8 + 4, t);
-      permute<G>(s, ark_s, t);
+      uint64_t s[LANES];
+      merge_state(s, src + j * 8, src + j * 8 + 4, t);
+      permute<GROUP>(s, ark_s, t);
       if (store) {
-        store_digest<G>(s, dst_g + j * 4, t);
-        if (l < b) store_digest<G>(s, dst + j * 4, t);
+        store_digest(s, dst_g + j * 4, t);
+        if (l < b) store_digest(s, dst + j * 4, t);
       }
     }
     __syncthreads();
@@ -492,27 +465,24 @@ merkle_levels_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out
 
 // The permutation of each given 12-lane state: the device coin's
 // merge_with_int (candidate states, rp64_256/mod.rs:235-254) runs through it.
-// G threads per state.
-template <int G>
 __global__ void __launch_bounds__(BLOCK)
 permute_rows_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out,
                     const uint64_t* __restrict__ ark, int64_t m) {
   __shared__ uint64_t ark_s[ARK_SIZE];
   load_ark(ark_s, ark);
-  constexpr int L = WIDTH / G;
-  const int t = threadIdx.x % G;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / G);
-  if (first_row_of_warp<G>(row0) >= m) return;
-  const int64_t i_raw = row0 + threadIdx.x / G;
+  const int t = threadIdx.x % GROUP;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / GROUP);
+  if (first_row_of_warp(row0) >= m) return;
+  const int64_t i_raw = row0 + threadIdx.x / GROUP;
   const bool store = i_raw < m;
   const int64_t i = store ? i_raw : m - 1;
-  uint64_t s[L];
+  uint64_t s[LANES];
 #pragma unroll
-  for (int j = 0; j < L; ++j) s[j] = in[i * WIDTH + t * L + j];
-  permute<G>(s, ark_s, t);
+  for (int j = 0; j < LANES; ++j) s[j] = in[i * WIDTH + t * LANES + j];
+  permute<GROUP>(s, ark_s, t);
   if (store) {
 #pragma unroll
-    for (int j = 0; j < L; ++j) out[i * WIDTH + t * L + j] = s[j];
+    for (int j = 0; j < LANES; ++j) out[i * WIDTH + t * LANES + j] = s[j];
   }
 }
 
@@ -577,100 +547,64 @@ __global__ void coin_draw_kernel(const uint64_t* __restrict__ cands,
   counter_out[0] = ctr;
 }
 
-inline unsigned int grid_for(int64_t m, int g) {
-  const int64_t per_block = BLOCK / g;
+inline unsigned int grid_for(int64_t m) {
+  constexpr int64_t per_block = BLOCK / GROUP;
   return static_cast<unsigned int>((m + per_block - 1) / per_block);
 }
-
-inline int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
 }  // namespace
 
 extern "C" {
 
-// rows (m, k) row-major, out (m, 4), ark (2, 7, 12); g threads per row (1
-// or 4). Returns cudaGetLastError(), or cudaErrorInvalidValue for another g.
+// rows (m, k) row-major, out (m, 4), ark (2, 7, 12); returns
+// cudaGetLastError().
 int wt_rp64_hash_rows(const void* rows, void* out, const void* ark, int64_t m,
-                      int64_t k, int g, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* r = static_cast<const uint64_t*>(rows);
-  auto* o = static_cast<uint64_t*>(out);
-  const auto* a = static_cast<const uint64_t*>(ark);
-  if (g == 1) {
-    const size_t bytes = static_cast<size_t>(BLOCK) * k * 8;
-    const int staged = k >= RATE && bytes <= STAGE_BYTES;
-    hash_rows_kernel<1><<<grid_for(m, 1), BLOCK, staged ? bytes : 0, s>>>(
-        r, o, a, m, k, staged);
-  } else if (g == 4) {
-    hash_rows_kernel<4><<<grid_for(m, 4), BLOCK, 0, s>>>(r, o, a, m, k, 0);
-  } else {
-    return invalid();
-  }
+                      int64_t k, void* stream) {
+  hash_rows_kernel<<<grid_for(m), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(rows), static_cast<uint64_t*>(out),
+      static_cast<const uint64_t*>(ark), m, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 // left/right rows of 4 at a row stride of `stride` elements, out (m, 4).
 int wt_rp64_merge_rows(const void* left, const void* right, void* out,
-                       const void* ark, int64_t m, int64_t stride, int g,
+                       const void* ark, int64_t m, int64_t stride,
                        void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* l = static_cast<const uint64_t*>(left);
-  const auto* r = static_cast<const uint64_t*>(right);
-  auto* o = static_cast<uint64_t*>(out);
-  const auto* a = static_cast<const uint64_t*>(ark);
-  if (g == 1)
-    merge_rows_kernel<1><<<grid_for(m, 1), BLOCK, 0, s>>>(l, r, o, a, m, stride);
-  else if (g == 4)
-    merge_rows_kernel<4><<<grid_for(m, 4), BLOCK, 0, s>>>(l, r, o, a, m, stride);
-  else
-    return invalid();
+  merge_rows_kernel<<<grid_for(m), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(left), static_cast<const uint64_t*>(right),
+      static_cast<uint64_t*>(out), static_cast<const uint64_t*>(ark), m, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 // `levels` Merkle levels over the 2^log_n nodes of `in` (contiguous rows of
 // 4), written to `out` largest first, one level after another; each block
-// takes 2^levels nodes, so 2^(log_n - levels) blocks. levels in 1..10 (the
-// two level buffers of a block, 24·2^levels bytes, stay within 24 KiB).
+// takes 2^levels nodes, so 2^(log_n - levels) blocks, with one group of
+// threads per merge of its first level (whole warps, at most TREE_THREADS).
+// levels in 1..10: the two level buffers of a block, 24·2^levels bytes, stay
+// within 24 KiB. Returns cudaGetLastError(), or cudaErrorInvalidValue for
+// other levels.
 int wt_rp64_merkle_levels(const void* in, void* out, const void* ark,
-                          int log_n, int levels, int g, void* stream) {
+                          int log_n, int levels, void* stream) {
   if (levels < 1 || levels > 10 || levels > log_n || log_n > 40)
-    return invalid();
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* i = static_cast<const uint64_t*>(in);
-  auto* o = static_cast<uint64_t*>(out);
-  const auto* a = static_cast<const uint64_t*>(ark);
+    return static_cast<int>(cudaErrorInvalidValue);
   const int64_t chunk = int64_t{1} << levels;
-  const auto grid = static_cast<unsigned int>((int64_t{1} << log_n) / chunk);
-  const size_t bytes = static_cast<size_t>(chunk / 2 + chunk / 4) * 32;
-  if (g == 1) {
-    merkle_levels_kernel<1><<<grid, BLOCK, bytes, s>>>(i, o, a, int64_t{1} << log_n,
-                                                      levels);
-  } else if (g == 4) {
-    // one group per merge of the block's first level, whole warps, at most
-    // TREE_THREADS_G4
-    int64_t threads = (chunk / 2) * 4;
-    threads = threads < 32 ? 32 : threads > TREE_THREADS_G4 ? TREE_THREADS_G4 : threads;
-    merkle_levels_kernel<4><<<grid, static_cast<unsigned int>(threads), bytes, s>>>(
-        i, o, a, int64_t{1} << log_n, levels);
-  } else {
-    return invalid();
-  }
+  int64_t threads = (chunk / 2) * GROUP;
+  threads = threads < 32 ? 32 : threads > TREE_THREADS ? TREE_THREADS : threads;
+  merkle_levels_kernel<<<static_cast<unsigned int>(int64_t{1} << (log_n - levels)),
+                         static_cast<unsigned int>(threads),
+                         static_cast<size_t>(chunk / 2 + chunk / 4) * 32,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(in), static_cast<uint64_t*>(out),
+      static_cast<const uint64_t*>(ark), int64_t{1} << log_n, levels);
   return static_cast<int>(cudaGetLastError());
 }
 
-// states (m, 12) row-major -> out (m, 12); g threads per state (1 or 4).
+// states (m, 12) row-major -> out (m, 12).
 int wt_rp64_permute_rows(const void* states, void* out, const void* ark,
-                         int64_t m, int g, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* in = static_cast<const uint64_t*>(states);
-  auto* o = static_cast<uint64_t*>(out);
-  const auto* a = static_cast<const uint64_t*>(ark);
-  if (g == 1)
-    permute_rows_kernel<1><<<grid_for(m, 1), BLOCK, 0, s>>>(in, o, a, m);
-  else if (g == 4)
-    permute_rows_kernel<4><<<grid_for(m, 4), BLOCK, 0, s>>>(in, o, a, m);
-  else
-    return invalid();
+                         int64_t m, void* stream) {
+  permute_rows_kernel<<<grid_for(m), BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(states), static_cast<uint64_t*>(out),
+      static_cast<const uint64_t*>(ark), m);
   return static_cast<int>(cudaGetLastError());
 }
 

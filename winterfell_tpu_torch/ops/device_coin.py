@@ -94,8 +94,7 @@ def permute_rows(states):
         err = lib.wt_rp64_permute_rows(states.data_ptr(), out.data_ptr(),
                                        rescue._table("ark",
                                                      states.device).data_ptr(),
-                                       states.shape[0],
-                                       rescue._lanes(states.shape[0]), stream)
+                                       states.shape[0], stream)
     rescue._raise_on(err, "rp64_permute_rows")
     LAUNCHES["rp64_permute_rows"] += 1
     return out

@@ -17,10 +17,6 @@ Each function has three parts:
   card it runs no kernel of its own;
 - the launch count, a plain integer per kernel.
 
-A launch with few permutations cannot fill the card with one thread per
-permutation, and then waits on one permutation's latency: the wrappers split
-each permutation over 4 threads there (``_lanes``).
-
 Inputs are int64 tensors of canonical Goldilocks elements (u64 bit patterns).
 """
 
@@ -43,15 +39,10 @@ _WIDTH, _RATE, _ROUNDS = 12, 8, 7
 LAUNCHES: Dict[str, int] = {"rp64_hash_rows": 0, "rp64_merge_rows": 0,
                             "rp64_merkle_tree": 0}
 
-# Threads per permutation. 2^16 permutations at one thread each (12 lanes in
-# registers) already give every SM of the card several waves of warps; below
-# that a launch waits on the latency of its permutations, and 4 threads of 3
-# lanes each cut the critical path of one to about a quarter.
-_FILL = 1 << 16
 # Merkle trees (rp64_merkle_levels): a block of a multi-level launch merges
 # 2^_TREE_CHUNK_LOG nodes into that many levels; once at most
-# 2^_TREE_TAIL_LOG nodes are left, one block of 4-thread groups (one group
-# per merge of its first level) finishes the tree.
+# 2^_TREE_TAIL_LOG nodes are left, one block (one group of threads per merge
+# of its first level) finishes the tree.
 _TREE_CHUNK_LOG = 10
 _TREE_TAIL_LOG = 8
 
@@ -61,23 +52,18 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _lanes(m: int) -> int:
-    """Threads per permutation for a launch of m permutations: 1 or 4."""
-    return 1 if m >= _FILL else 4
-
-
 def _tree_plan(log_n: int):
-    """The launches that build the levels over 2^log_n leaves:
-    [(log2 of the input level's size, levels it merges, threads per
-    merge)], largest level first. Each launch but the last leaves at least
-    2^_TREE_TAIL_LOG nodes; the last is one block."""
+    """The launches that build the levels over 2^log_n leaves: [(log2 of
+    the input level's size, levels it merges)], largest level first. Each
+    launch but the last leaves at least 2^_TREE_TAIL_LOG nodes; the last is
+    one block."""
     plan = []
     while log_n > _TREE_TAIL_LOG:
         b = min(_TREE_CHUNK_LOG, log_n - _TREE_TAIL_LOG)
-        plan.append((log_n, b, _lanes(1 << (log_n - 1))))
+        plan.append((log_n, b))
         log_n -= b
     if log_n > 0:
-        plan.append((log_n, log_n, 4))
+        plan.append((log_n, log_n))
     return plan
 
 
@@ -216,13 +202,13 @@ def _kernels():
         lib = _build.load("rescue")
         vp, i64 = ctypes.c_void_p, ctypes.c_int64
         i32 = ctypes.c_int
-        lib.wt_rp64_hash_rows.argtypes = [vp, vp, vp, i64, i64, i32, vp]
+        lib.wt_rp64_hash_rows.argtypes = [vp, vp, vp, i64, i64, vp]
         lib.wt_rp64_hash_rows.restype = ctypes.c_int
-        lib.wt_rp64_merge_rows.argtypes = [vp, vp, vp, vp, i64, i64, i32, vp]
+        lib.wt_rp64_merge_rows.argtypes = [vp, vp, vp, vp, i64, i64, vp]
         lib.wt_rp64_merge_rows.restype = ctypes.c_int
-        lib.wt_rp64_merkle_levels.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+        lib.wt_rp64_merkle_levels.argtypes = [vp, vp, vp, i32, i32, vp]
         lib.wt_rp64_merkle_levels.restype = ctypes.c_int
-        lib.wt_rp64_permute_rows.argtypes = [vp, vp, vp, i64, i32, vp]
+        lib.wt_rp64_permute_rows.argtypes = [vp, vp, vp, i64, vp]
         lib.wt_rp64_permute_rows.restype = ctypes.c_int
         lib.wt_rp64_coin_draw.argtypes = [vp, vp, vp, vp, vp, ctypes.c_uint64,
                                           i64, i64, i64, vp]
@@ -268,7 +254,7 @@ def rp64_hash_rows(rows):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.wt_rp64_hash_rows(rows.data_ptr(), out.data_ptr(),
                                     _table("ark", rows.device).data_ptr(),
-                                    m, k, _lanes(m), stream)
+                                    m, k, stream)
     _raise_on(err, "rp64_hash_rows")
     LAUNCHES["rp64_hash_rows"] += 1
     return out
@@ -304,7 +290,7 @@ def rp64_merge_rows(left, right):
         err = lib.wt_rp64_merge_rows(left.data_ptr(), right.data_ptr(),
                                      out.data_ptr(),
                                      _table("ark", left.device).data_ptr(),
-                                     m, stride, _lanes(m), stream)
+                                     m, stride, stream)
     _raise_on(err, "rp64_merge_rows")
     LAUNCHES["rp64_merge_rows"] += 1
     return out
@@ -332,12 +318,12 @@ def rp64_merkle_levels(leaves):
     with torch.cuda.device(leaves.device):
         stream = torch.cuda.current_stream().cuda_stream
         ark = _table("ark", leaves.device).data_ptr()
-        for lg, b, g in _tree_plan(log_n):
+        for lg, b in _tree_plan(log_n):
             # the level of size s sits at rows [n - 2s, n - s) of buf
             src = (leaves.data_ptr() if lg == log_n else
                    base + row * (n - (2 << lg)))
             err = lib.wt_rp64_merkle_levels(src, base + row * (n - (1 << lg)),
-                                            ark, lg, b, g, stream)
+                                            ark, lg, b, stream)
             _raise_on(err, "rp64_merkle_levels")
             LAUNCHES["rp64_merkle_tree"] += 1
     return [buf[n - 2 * s : n - s] for s in (n >> i for i in
