@@ -353,10 +353,9 @@ def main() -> int:
 
     for name, fn, plain, args, shape in cases:
         check(name, flat(fn(*args)), flat(plain(*args)), shape)
-    # the main path's shapes, with the rule: a Merkle level of the LDE, the
-    # whole 2^21-leaf tree, and the row hashes of the trace LDE, the
-    # composition LDE, a FRI layer, and the 12-wide rows of the loop-variant
-    # experiment
+    # the main path's shapes: a Merkle level of the LDE, the whole
+    # 2^21-leaf tree, and the row hashes of the trace LDE, the composition
+    # LDE, a FRI layer, and the 12-wide rows of the loop-variant experiment
     for make in both:
         level = make(rng, (big, 4), dev)
         check("rp64_merge_rows",

@@ -26,12 +26,11 @@
 //   where the sponge needs canonical values: before the absorb adds of a
 //   later rate chunk, before digest and state writes, and before the draw
 //   kernel's < p test (the pallas_rescue.py:399-411 trap).
-// - Carry chains in PTX. Written in C++ on u64, the products and the
-//   reduction compiled to 64-bit shifts, compares and selects: 34 SASS
-//   instructions per squaring, two thirds of them on the ALU pipe. Here the
-//   products are 32-bit multiply-adds with carry (mad.lo.cc / madc.hi.cc,
-//   the IMAD pipe) and the reduction add/sub with carry: 22 per squaring,
-//   about half on each pipe.
+// - Carry chains in PTX. Written in C++ on u64, the carries of the products
+//   and the reduction compile to 64-bit shifts, compares and selects on the
+//   ALU pipe. Here the products are 32-bit multiply-adds with carry
+//   (mad.lo.cc / madc.hi.cc, the IMAD pipe) and the reduction add/sub with
+//   carry: 22 SASS instructions per squaring, about half on each pipe.
 // - Squarings take 3 partial products, not 4 (sqr_lazy; the TPU kernel's
 //   _gl_sqr): a0², a1², and a0·a1 added twice.
 // - The MDS is the circulant product written out with compile-time
@@ -437,12 +436,12 @@ merkle_levels_kernel(const uint64_t* __restrict__ in, uint64_t* __restrict__ out
   const int slot = threadIdx.x / GROUP;
   const int warp_slot = (threadIdx.x & ~31) / GROUP;  // the warp's first slot
   const int64_t chunk = int64_t{1} << b;
-  uint64_t* buf[2] = {level_s, level_s + (chunk / 2) * 4};
   const uint64_t* src = in + static_cast<int64_t>(blockIdx.x) * chunk * 4;
   int64_t out_row = 0, size = n_in / 2;  // this level's first row and size
   for (int l = 1; l <= b; ++l) {
     const int merges = static_cast<int>(chunk >> l);
-    uint64_t* dst = buf[(l - 1) & 1];
+    // odd levels in the first buffer, even ones in the second
+    uint64_t* dst = level_s + ((l - 1) & 1) * (chunk / 2) * 4;
     uint64_t* dst_g = out + (out_row + static_cast<int64_t>(blockIdx.x) * merges) * 4;
     for (int j0 = 0; j0 < merges; j0 += slots) {
       if (j0 + warp_slot >= merges) continue;  // uniform across the warp

@@ -24,8 +24,8 @@ kernel:
   plus the code outside every loop once (loads, stores, the canonical fix).
   A loop's trip count is the immediate of the compare that sets its
   branch's predicate; loops outside the round loop (the round-constant copy
-  into shared memory, the K1 absorb loop) are left out. With G threads per
-  permutation this is one thread's share.
+  into shared memory, the K1 absorb loop) are left out. Where several
+  threads share a permutation this is one thread's share.
 
 The report needs the CUDA toolkit (nvcc, ptxas, cuobjdump), not a card.
 """
@@ -59,8 +59,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 def _tool(name: str) -> str:
     path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
     if not os.path.exists(path):
-        raise RuntimeError(f"{name} not found: the CUDA kernels cannot be "
-                           "built")
+        raise RuntimeError(f"{name} not found: the CUDA toolkit is needed")
     return path
 
 
@@ -78,7 +77,8 @@ def _start(name: str):
         return None, None, target
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, target
