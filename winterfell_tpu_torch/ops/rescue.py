@@ -326,5 +326,5 @@ def rp64_merkle_levels(leaves):
                                             ark, lg, b, stream)
             _raise_on(err, "rp64_merkle_levels")
             LAUNCHES["rp64_merkle_tree"] += 1
-    return [buf[n - 2 * s : n - s] for s in (n >> i for i in
-                                             range(1, log_n + 1))]
+    sizes = [n >> i for i in range(1, log_n + 1)]
+    return [buf[n - 2 * s : n - s] for s in sizes]
