@@ -605,8 +605,8 @@ def main() -> int:
     records = [
         ("rp64_hash_rows", "winterfell_tpu/ops/pallas_rescue.py:596",
          "winterfell_tpu_torch/csrc/rescue.cu",
-         # PR 4's shapes first, the third K4's (scripts/pallas_loop_exp.py
-         # runs K1's body on (2^21, 12) rows); then the composition LDE, the
+         # the trace LDE, a FRI layer, K4's shape (scripts/pallas_loop_exp.py
+         # runs K1's body on (2^21, 12) rows), the composition LDE, the
          # smaller FRI layers and the one-row OOD hash
          [hash_entry(big, 2), hash_entry(big // 8, 24), hash_entry(big, 12),
           hash_entry(big, 3 * comp_cols), hash_entry(big // 64, 24),

@@ -49,8 +49,8 @@
 //   steps, the one-row hashes, the small levels of a tree), and with 48
 //   registers a thread leaves room for many warps on an SM. The whole state
 //   in one thread needs 128 registers and measured slower at every shape of
-//   the main path, the largest included (PERF.md, PR 5), so every kernel
-//   but the draw kernel's rare own permutations takes 4.
+//   the main path, the largest included (PERF.md), so every kernel but the
+//   draw kernel's rare own permutations takes 4.
 // - Whole trees in a few launches (merkle_levels_kernel): a block merges
 //   2^b consecutive nodes of a level into b levels, keeping each level in
 //   shared memory for the next and writing it out; one block finishes the
