@@ -6,32 +6,37 @@
 Phases, each printed with its elapsed seconds as it ends:
 
 1. device: the card's name and power limit; build the CUDA kernels (one
-   nvcc per source, all at once).
-2. kernels: every kernel of the main path against its plain PyTorch version
-   on the card, bit for bit (field elements are exact integers): K1 row hash,
-   K2 merge per level and the Merkle tree kernel (leaf counts 2^0, 2^1, each
-   side of the one-block tail, 2^21), K3 field multiply (contiguous,
-   broadcast, strided, Python-int operands), and the device coin's
-   permute_rows and draw kernels; the Rescue kernels on random values and on
-   corner sets (0, 1, 2^32 - 1, 2^32, 2^63, p - 2^32, p - 2, p - 1).
-3. card vs CPU: a fib proof at trace 2^10 on the card and on the CPU, on the
-   resident route and on the phased route; the four Proof.to_bytes() must be
-   equal and verify() must accept the proof.
-4. main path: bench.py's default workload through the port — fib over f64,
-   trace 2^18, cubic extension, Rp64_256 — proved and verified on the
-   default (resident) route and on the phased route (WINTER_RESIDENT=0's,
-   fused FRI): per route one warm-up, three timed proves with the phase
-   barriers off (as bench.py times), then one prove with them on for the
-   per-phase split. The resident proves run their device part under
-   torch.cuda.set_sync_debug_mode("error"): any host synchronisation there
-   fails the run. Each kernel must have launched during the first timed
-   resident prove, and K2 (per-level and tree kernel together) at most 30
-   times per prove on either route.
+   nvcc per source, all at once) and the native host BLAKE3.
+2. kernels: every kernel against its plain PyTorch version on the card, bit
+   for bit (field elements and digest words are exact integers): K1 row
+   hash, K2 merge per level and the Merkle tree kernel (leaf counts 2^0,
+   2^1, each side of the one-block tail, 2^21), K3 field multiply
+   (contiguous, broadcast, strided, Python-int operands, and split into
+   several launches above a lowered INDEX_LIMIT), the Rp64 coin's
+   permute_rows and draw kernels; B10 BLAKE3 (8 and 6 digest words), B11
+   SHA3 and B12 Jive row hashes at 1 ... 40 elements a row, merges and trees
+   of 1 ... 2^21 leaves; the byte coins' draw kernels with rejected
+   candidates planted; the Rescue kernels on random values and on corner
+   sets (0, 1, 2^32 - 1, 2^32, 2^63, p - 2^32, p - 2, p - 1), the byte
+   hashes on random words and all-ones words.
+3. card vs CPU: a fib proof at trace 2^10 with each f64 hasher on the card,
+   on each route the JAX dispatch gives it (resident, phased with fused
+   FRI, phased with the host coin; RpJive64_256 only the last), against the
+   CPU's bytes; verify() accepts each.
+4. main path: fib over f64, trace 2^18, bench.py's options — with Rp64_256
+   (bench.py's workload) and with Blake3_256 — on the resident and the
+   phased route: per route one warm-up, its resident device run under
+   torch.cuda.set_sync_debug_mode("error") (any host synchronisation fails
+   the run), three proves timed with the phase barriers off (as bench.py
+   times; the first one's launches counted), one with them on for the
+   per-phase split; all equal and verified. Each path's kernels must have
+   launched, and K2 at most 30 times per Rp64 prove. Then one 2^18 prove,
+   verified, with the CLI's default options (Blake3_256, grinding 16, no
+   extension) and one each with Blake3_192, Sha3_256 and RpJive64_256.
 5. kernel times at the main path's shapes against their bounds: device time
    per launch from launches replayed in a CUDA graph, beside the time per
    call when the wrapper is called back to back from Python; the whole
-   2^21-leaf tree, one-row K1 and K2 latency and K1 at the composition
-   width.
+   2^21-leaf trees, one-row latencies, the composition width.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict. Any failure exits non-zero before that verdict. Without a
@@ -69,6 +74,26 @@ IMAD_PER_PERM = 7 * 12 * (65 * 6 + 11 * 8) + 7 * 2 * 144 * 4
 # K3: one 64×64→128-bit product is 4 partial products of 2 IMADs each; the
 # reduction multiplies by 2^32 − 1 only (a shift and a subtract)
 IMAD_PER_MUL = 8
+# B12, RpJive64_256: the same count at width 8, whose MDS has 64
+# small-constant products: 7·8·(65·6 + 11·8) + 7·2·64·4 = 30,352.
+IMAD_PER_JIVE = 7 * 8 * (65 * 6 + 11 * 8) + 7 * 2 * 64 * 4
+# The integer ALU pipe (adds, logic ops, shifts) takes a warp instruction
+# every other cycle per SM quarter, as the IMAD pipe: 132 × 64 lanes per
+# clock at 1.98 GHz.
+ALU_PER_S = 132 * 64 * 1.98e9
+# B10: one BLAKE3 compression is 7 rounds of 8 G functions, each 4
+# three-input adds, 4 xors (LOP3) and 4 rotations (one funnel shift, SHF,
+# each), then 8 xors. The adds may issue on the IMAD pipe as well (IMAD.IADD;
+# the compiler puts about half of them there), the xors and rotations only on
+# the ALU pipe: its floor is 7·8·8 + 8 = 456 instructions, more than half of
+# all 680.
+ALU_PER_BLAKE3 = 7 * 8 * 8 + 8
+# B11: the fewest ALU instructions of one Keccak-f[1600] on 32-bit halves
+# with three-input logic ops: per round θ's 5 column parities (2 LOP3 per
+# half: 20), their 5 rotations by 1 (2 SHF: 10) and the 25 lanes' update
+# (one LOP3 per half: 50), ρ's 24 rotations (2 SHF each: 48), χ's 25
+# lanes (a ^ (~b & c), one LOP3 per half: 50), ι (2): 180 a round, ×24.
+ALU_PER_KECCAK = 24 * 180
 
 
 def log(msg: str) -> None:
@@ -102,9 +127,11 @@ def _corner_field(shape, device):
 
 
 def _max_abs_err(a, b) -> float:
-    """Largest |a − b| over the elements, read as unsigned 64-bit values."""
-    x = a.cpu().numpy().view(np.uint64).astype(object).ravel()
-    y = b.cpu().numpy().view(np.uint64).astype(object).ravel()
+    """Largest |a − b| over the elements, read as unsigned values (64-bit
+    field elements, 32-bit digest words)."""
+    kind = np.uint32 if a.dtype == torch.int32 else np.uint64
+    x = a.cpu().numpy().view(kind).astype(object).ravel()
+    y = b.cpu().numpy().view(kind).astype(object).ravel()
     return float(max((abs(u - v) for u, v in zip(x, y)), default=0))
 
 
@@ -215,6 +242,37 @@ def _bound_draw(k: int, d: int):
     return _bound(0, 32 + k * 32 + k * d * 8 + 8)
 
 
+def _bound_blake3(m: int, byte_len: int, dw: int):
+    """B10 row hash of m rows of byte_len bytes: one compression per 64-byte
+    block; each row read once, each digest written once."""
+    blocks = max(1, -(-byte_len // 64))
+    return _bound_alu(m * blocks * ALU_PER_BLAKE3, m * (byte_len + 4 * dw))
+
+
+def _bound_sha3(m: int, byte_len: int):
+    """B11 row hash: byte_len // 136 + 1 permutations per row."""
+    perms = byte_len // 136 + 1
+    return _bound_alu(m * perms * ALU_PER_KECCAK, m * (byte_len + 32))
+
+
+def _bound_alu(ops: float, nbytes: float):
+    """(bound ms, bound_by): the larger of the ALU time and the bytes time."""
+    ops_ms = ops / ALU_PER_S * 1000
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1000
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _bound_byte_merge(merges: int, dw: int, per_hash: int, reads: int):
+    """merges one-block hashes of two dw-word digests: ``reads`` digests
+    read (2 per merge of a level, 1 per node of a tree's input level) and
+    one written per merge."""
+    return _bound_alu(merges * per_hash, (reads + merges) * 4 * dw)
+
+
+def _bound_jive(perms: int, nbytes: int):
+    return _bound(perms * IMAD_PER_JIVE, nbytes)
+
+
 def _check_syncs(prover, on: bool) -> None:
     """With on, the prover's resident device run (_resident_run) runs under
     torch.cuda.set_sync_debug_mode("error"): any host synchronisation there
@@ -235,19 +293,31 @@ def _check_syncs(prover, on: bool) -> None:
     prover._resident_run = checked
 
 
+def _kernel_modules():
+    from winterfell_tpu_torch.ops import (blake3, device_coin, field_kernels,
+                                          jive, rescue, sha3)
+
+    return (rescue, field_kernels, device_coin, blake3, sha3, jive)
+
+
 def _launches():
     """Every kernel's launch count since the last _reset_launches()."""
-    from winterfell_tpu_torch.ops import device_coin, field_kernels, rescue
-
-    return {**rescue.LAUNCHES, **field_kernels.LAUNCHES,
-            **device_coin.LAUNCHES}
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def _reset_launches() -> None:
-    from winterfell_tpu_torch.ops import device_coin, field_kernels, rescue
-
-    for mod in (rescue, field_kernels, device_coin):
+    for mod in _kernel_modules():
         mod.reset_launches()
+
+
+def _words(rng, shape, device):
+    """Random u32 words as int32, the first row all ones."""
+    a = rng.integers(0, 2**32, size=shape, dtype=np.uint32)
+    a[0] = 2**32 - 1
+    return torch.from_numpy(a.view(np.int32)).to(device)
 
 
 def main() -> int:
@@ -256,7 +326,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from winterfell_tpu_torch.air import FieldExtension, ProofOptions, TraceInfo
-    from winterfell_tpu_torch.crypto.hashers import Rp64_256
+    from winterfell_tpu_torch.air.proof import Proof
+    from winterfell_tpu_torch.crypto import native
+    from winterfell_tpu_torch.crypto.hashers import (
+        Blake3_192,
+        Blake3_256,
+        Rp64_256,
+        RpJive64_256,
+        Sha3_256,
+    )
     from winterfell_tpu_torch.examples.fibonacci import (
         FibSmallAir,
         FibSmallProver,
@@ -266,7 +344,7 @@ def main() -> int:
     from winterfell_tpu_torch.math.fields import F64
     from winterfell_tpu_torch.ops import _build, device_coin, field_kernels
     from winterfell_tpu_torch.ops import goldilocks as gl
-    from winterfell_tpu_torch.ops import rescue
+    from winterfell_tpu_torch.ops import blake3, jive, rescue, sha3
     from winterfell_tpu_torch.prover import device as prover_device
     from winterfell_tpu_torch.prover.device import GoldilocksProver
     from winterfell_tpu_torch.utils import tracing
@@ -282,6 +360,8 @@ def main() -> int:
     # entry points themselves take CUDA tensors only
     k3 = gl.gl_mul if REHEARSAL else field_kernels.gl_mul_kernel
     draw_k = device_coin.draw_plain if REHEARSAL else device_coin.draw_kernel
+    byte_draw = ((lambda kind, *args: device_coin.draw_plain(*args, kind))
+                 if REHEARSAL else device_coin.byte_draw_kernel)
 
     # 1 ----- device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -300,13 +380,16 @@ def main() -> int:
         _build.build_all()
         log(f"kernels built in {time.perf_counter() - tb:.2f} s "
             f"({', '.join(_build.SOURCES)})")
+    # the host BLAKE3 of the transcript and the grinding scan: the native
+    # library, built from native/blake3.c with the C compiler
+    if not native.available():
+        raise AssertionError("the native BLAKE3 library did not build")
+    log("native BLAKE3 built and loaded")
     phase("1 device", t0)
 
     # 2 ----- kernels against their plain versions, on the card -------------
     t0 = time.perf_counter()
-    errs = {"rp64_hash_rows": 0.0, "rp64_merge_rows": 0.0,
-            "rp64_merkle_tree": 0.0, "gl_mul": 0.0, "rp64_permute_rows": 0.0,
-            "rp64_coin_draw": 0.0}
+    errs = {name: 0.0 for name in _launches()}
 
     def check(name, got, plain, shape):
         errs[name] = max(errs[name], _exact(got, plain, f"{name} {shape}"))
@@ -427,35 +510,135 @@ def main() -> int:
         check("rp64_coin_draw", torch.cat([got_e.reshape(-1), got_c]),
               torch.cat([want_e.reshape(-1), want_c]), (k, d, reject))
     log("the coin's draw kernel equals its plain version")
+
+    # B10 (BLAKE3, 8 and 6 digest words), B11 (SHA3), B12 (Jive): row
+    # hashes at the main path's widths in elements (and rows of 40, 320
+    # bytes, over two SHA3 rate blocks), on random and corner values
+    for k in (1, 2, 3, 8, 24, 40):
+        for m in (1, 1000):
+            for make in both:
+                rows = make(rng, (m, k), dev)
+                words, blen = blake3.rows_from_u64(rows)
+                for dw in (8, 6):
+                    check("blake3_hash_rows",
+                          blake3.blake3_hash_words(words, blen, dw),
+                          blake3.blake3_hash_words_plain(words, blen, dw),
+                          (m, k, dw))
+                check("sha3_hash_rows", sha3.sha3_hash_words(words, blen),
+                      sha3.sha3_hash_words_plain(words, blen), (m, k))
+                check("jive_hash_rows", jive.jive_hash_rows(rows),
+                      jive.jive_hash_rows_plain(rows), (m, k))
+    for m, k in ((big, 2), (big, 3 * comp_cols), (big // 8, 24)):
+        rows = _rng_field(rng, (m, k), dev)
+        words, blen = blake3.rows_from_u64(rows)
+        check("blake3_hash_rows", blake3.blake3_hash_words(words, blen),
+              blake3.blake3_hash_words_plain(words, blen), (m, k))
+        check("sha3_hash_rows", sha3.sha3_hash_words(words, blen),
+              sha3.sha3_hash_words_plain(words, blen), (m, k))
+        check("jive_hash_rows", jive.jive_hash_rows(rows),
+              jive.jive_hash_rows_plain(rows), (m, k))
+    # merges of a level's sibling pairs and whole trees, 1 ... 2^21 leaves
+    hash_trees = [
+        ("blake3", 8, blake3.blake3_merge_rows, blake3.blake3_merge_rows_plain,
+         blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
+        ("blake3", 6, blake3.blake3_merge_rows, blake3.blake3_merge_rows_plain,
+         blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
+        ("sha3", 8, sha3.sha3_merge_rows, sha3.sha3_merge_rows_plain,
+         sha3.sha3_merkle_levels, sha3.sha3_merkle_levels_plain),
+        ("jive", 4, jive.jive_merge_rows, jive.jive_merge_rows_plain,
+         jive.jive_merkle_levels, jive.jive_merkle_levels_plain)]
+    for family, w, merge, merge_plain, levels, levels_plain in hash_trees:
+        for n in (1, 2, 4, tail // 2, tail, 2 * tail, chunk, 2 * chunk, big):
+            makes = (both if w == 4 else
+                     [lambda _, shape, where: _words(rng, shape, where)])
+            for make in makes:
+                leaves = make(rng, (n, w), dev)
+                if n > 1:
+                    check(f"{family}_merge_rows",
+                          merge(leaves[0::2], leaves[1::2]),
+                          merge_plain(leaves[0::2], leaves[1::2]), (n, w))
+                check(f"{family}_merkle_tree", flat(levels(leaves)),
+                      flat(levels_plain(leaves)), ("leaves", n, w))
+    log("B10 blake3, B11 sha3 and B12 jive row hashes, merges and trees "
+        "(1 ... 2^%d leaves) equal their plain versions" % (big.bit_length() - 1))
+    # the byte coins' draw kernels, with rejected candidates planted: the
+    # kernel then hashes further counters itself
+    for coin in ("blake3_256", "blake3_192", "sha3_256"):
+        dw = device_coin.BYTE_KINDS[coin][2]
+        name = device_coin.BYTE_KINDS[coin][3]
+        _, next_byte = device_coin.byte_coin_ops(coin)
+        for k, d, reject in ((1, 3, ()), (5, 3, ()), (7, 1, ()),
+                             (3, 2, (1,)), (2, 3, (0, 1))):
+            seed_w = _words(rng, (dw,), dev)
+            cands = next_byte(seed_w, 0, k).clone()
+            for j in reject:  # a u64 word >= p: that counter is rejected
+                cands[j, :2] = -1
+            got_e, got_c = byte_draw(coin, cands, seed_w, 0, k, d)
+            want_e, want_c = device_coin.draw_plain(cands, seed_w, 0, k, d,
+                                                    coin)
+            check(name, torch.cat([got_e.reshape(-1), got_c]),
+                  torch.cat([want_e.reshape(-1), want_c]),
+                  (coin, k, d, reject))
+    log("the byte coins' draw kernels equal their plain version, rejected "
+        "candidates included")
+    # K3 above its 32-bit offsets: under a lowered INDEX_LIMIT a product is
+    # split into several launches that together give the plain product
+    limit = field_kernels.INDEX_LIMIT
+    field_kernels.INDEX_LIMIT = 1 << 16
+    try:
+        x, y = _rng_field(rng, (big // 8, 24), dev), _rng_field(rng, (24,), dev)
+        before = field_kernels.LAUNCHES["gl_mul"]
+        got = k3(x, y)
+        splits = field_kernels.LAUNCHES["gl_mul"] - before
+    finally:
+        field_kernels.INDEX_LIMIT = limit
+    check("gl_mul", got, field_kernels.gl_mul_plain(x, y), ("split", splits))
+    if not REHEARSAL and splits < 2:
+        raise AssertionError(f"gl_mul: {splits} launches for a product above "
+                             "the lowered INDEX_LIMIT")
+    log(f"K3 above INDEX_LIMIT: {splits} launches equal the plain product")
     phase("2 kernels", t0)
 
-    # 3 ----- card vs CPU, both routes ---------------------------------------
+    # 3 ----- card vs CPU, every hasher on each of its routes ----------------
     t0 = time.perf_counter()
     Prover = GoldilocksProver.accelerate(FibSmallProver)
     n_cmp = 1 << log2_cmp
-    resident_default = prover_device._RESIDENT_ON_F64
+    defaults = (prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON)
+    marks = {"resident": "resident_pipeline", "fused": "fri_layers_fused"}
+    # the routes the JAX dispatch gives each hasher: RpJive64_256 has no
+    # device coin, so only the host-coin FRI loop
+    coin_routes = ("resident", "fused", "host")
+    hasher_routes = [(Rp64_256, coin_routes), (Blake3_256, coin_routes),
+                     (Blake3_192, coin_routes), (Sha3_256, coin_routes),
+                     (RpJive64_256, ("host",))]
 
-    def routed(resident: bool):
-        prover_device._RESIDENT_ON_F64 = resident
-        return "resident_pipeline" if resident else "fri_layers_fused"
+    def routed(route: str) -> None:
+        prover_device._RESIDENT_ON_F64 = route == "resident"
+        prover_device._FUSED_FRI_ON = route != "host"
 
-    ref_bytes = None
-    for resident in (True, False):
-        mark = routed(resident)
-        for where in (dev, torch.device("cpu")):
-            proof = Prover(options, Rp64_256, device=where).prove(
-                build_fib_trace(F64, 2 * n_cmp, device=where))
-            if mark not in [s["name"] for s in tracing.last_spans()]:
-                raise AssertionError(f"the prove on {where} missed {mark}")
-            if ref_bytes is None:
-                ref_bytes = proof.to_bytes()
-                verify(FibSmallAir, proof, compute_fib_term(F64, 2 * n_cmp),
-                       Rp64_256)
-            elif proof.to_bytes() != ref_bytes:
-                raise AssertionError(f"{mark} proof bytes on {where} differ")
-    routed(resident_default)
-    log(f"fib 2^{log2_cmp}: card bytes == CPU bytes on the resident and the "
-        f"phased route ({len(ref_bytes)} B), verified")
+    def check_route(route: str, what: str) -> None:
+        names = [s["name"] for s in tracing.last_spans()]
+        taken = ("resident" if marks["resident"] in names else
+                 "fused" if marks["fused"] in names else "host")
+        if taken != route:
+            raise AssertionError(f"{what}: took the {taken} route, not {route}")
+
+    for hasher, routes in hasher_routes:
+        cpu = Prover(options, hasher, device="cpu").prove(
+            build_fib_trace(F64, 2 * n_cmp)).to_bytes()
+        verify(FibSmallAir, Proof.from_bytes(cpu),
+               compute_fib_term(F64, 2 * n_cmp), hasher)
+        for route in routes:
+            routed(route)
+            proof = Prover(options, hasher, device=dev).prove(
+                build_fib_trace(F64, 2 * n_cmp, device=dev))
+            check_route(route, f"{hasher.name} on {dev}")
+            if proof.to_bytes() != cpu:
+                raise AssertionError(f"{hasher.name}: {route} proof bytes on "
+                                     f"{dev} differ from the CPU's")
+        log(f"fib 2^{log2_cmp} {hasher.name}: card bytes == CPU bytes on "
+            f"{', '.join(routes)} ({len(cpu)} B), verified")
+    prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
     phase("3 card vs cpu", t0)
 
     # 4 ----- the main path at full size, both routes ------------------------
@@ -465,90 +648,123 @@ def main() -> int:
     result = trace.get(1, n - 1)
     if result != compute_fib_term(F64, 2 * n):
         raise AssertionError("trace's last term differs from compute_fib_term")
-    runs, warm_bytes = {}, None
-    for route in ("resident", "phased"):
-        mark = routed(route == "resident")
-        prover = Prover(options, Rp64_256, device=dev)
-        # any host synchronisation inside the resident device run raises
-        _check_syncs(prover, not REHEARSAL)
+    runs = {}  # (hasher name, route) -> kernel launches of one prove
+
+    def timed_path(hasher, route: str, opts):
+        """One warm-up (its resident device run under the sync check,
+        untimed), three proves timed free-running (phase barriers off, as
+        bench.py times; the first one's launches counted), one more with a
+        barrier at every phase mark for the card's time per phase. All
+        proofs equal and verified."""
+        routed(route)
+        prover = Prover(opts, hasher, device=dev)
+        _check_syncs(prover, not REHEARSAL and route == "resident")
         tracing.set_phase_sync(True)
         warm = prover.prove(trace)
-        verify(FibSmallAir, warm, result, Rp64_256)
-        if warm_bytes is None:
-            warm_bytes = warm.to_bytes()
-        elif warm.to_bytes() != warm_bytes:
-            raise AssertionError("the phased proof differs from the resident")
+        check_route(route, hasher.name)
+        verify(FibSmallAir, warm, result, hasher)
+        _check_syncs(prover, False)
         if not REHEARSAL:
             torch.cuda.reset_peak_memory_stats()
-        # the timed proves run free, as bench.py times its proves: no barrier
-        # at the phase marks, one synchronize at the end of each prove
         tracing.set_phase_sync(False)
-        walls, launches = [], None
+        walls = []
         for i in range(3):
-            if i == 0:
-                _reset_launches()
+            _reset_launches()
             t = time.perf_counter()
             proof = prover.prove(trace)
             if not REHEARSAL:
                 torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
             if i == 0:
-                launches = _launches()
-            if mark not in [s["name"] for s in tracing.last_spans()]:
-                raise AssertionError(f"the {route} prove missed {mark}")
-            if proof.to_bytes() != warm_bytes:
-                raise AssertionError(f"{route} proves gave other bytes")
-        verify(FibSmallAir, proof, result, Rp64_256)
+                runs[hasher.name, route] = _launches()
+            if proof.to_bytes() != warm.to_bytes():
+                raise AssertionError(f"{hasher.name} {route}: proves gave "
+                                     "other bytes")
         peak = 0 if REHEARSAL else torch.cuda.max_memory_allocated()
-        unchecked = []
-        if route == "resident":
-            # three more with the sync check off: what the check costs
-            _check_syncs(prover, False)
-            for _ in range(3):
-                t = time.perf_counter()
-                if prover.prove(trace).to_bytes() != warm_bytes:
-                    raise AssertionError("unchecked proves gave other bytes")
-                if not REHEARSAL:
-                    torch.cuda.synchronize()
-                unchecked.append(time.perf_counter() - t)
-            _check_syncs(prover, not REHEARSAL)
-        # one more prove, untimed, with a barrier at every phase mark: its
-        # marks are then the card's time per phase
         tracing.set_phase_sync(True)
         t = time.perf_counter()
-        if prover.prove(trace).to_bytes() != warm_bytes:
+        if prover.prove(trace).to_bytes() != warm.to_bytes():
             raise AssertionError("the phase-split prove gave other bytes")
         split_wall = time.perf_counter() - t
         spans = tracing.last_spans()
-        runs[route] = launches
-        log(f"{route}: fib 2^{log2_trace} prove wall s (phase barriers off): "
-            f"min {min(walls):.4f} median {statistics.median(walls):.4f} "
-            f"runs {[round(w, 4) for w in walls]}")
-        if unchecked:
-            log(f"{route}: the same with the sync check off: min "
-                f"{min(unchecked):.4f} median "
-                f"{statistics.median(unchecked):.4f} runs "
-                f"{[round(w, 4) for w in unchecked]}")
-        log(f"{route}: phases (one more prove, barriers on, wall "
-            f"{split_wall:.4f} s; ms): " + ", ".join(
+        log(f"{hasher.name} {route}: fib 2^{log2_trace} prove wall s (phase "
+            f"barriers off): min {min(walls):.4f} median "
+            f"{statistics.median(walls):.4f} runs "
+            f"{[round(w, 4) for w in walls]}")
+        log(f"{hasher.name} {route}: phases (one more prove, barriers on, "
+            f"wall {split_wall:.4f} s; ms): " + ", ".join(
                 f"{s['name']} {1000 * s['seconds']:.1f}" for s in spans))
-        log(f"{route}: peak device memory {peak / 2**30:.3f} GiB; launches "
-            f"per prove {launches}; proof {len(proof.to_bytes())} B, verified")
-    routed(resident_default)
-    tracing.set_phase_sync(True)
-    if not REHEARSAL:
-        for name, c in runs["resident"].items():
-            if c <= 0:
-                raise AssertionError(f"kernel {name} was not launched by a "
-                                     "resident prove")
-    for route, counts in runs.items():
+        used = {k: v for k, v in runs[hasher.name, route].items() if v}
+        log(f"{hasher.name} {route}: peak device memory "
+            f"{peak / 2**30:.3f} GiB; launches per prove {used}; proof "
+            f"{len(warm.to_bytes())} B, verified")
+        return warm.to_bytes()
+
+    def one_prove(hasher, opts, what: str):
+        """One prove on the default route, its launches counted, verified."""
+        routed("resident")
+        tracing.set_phase_sync(True)
+        _reset_launches()
+        t = time.perf_counter()
+        proof = Prover(opts, hasher, device=dev).prove(trace)
+        wall = time.perf_counter() - t
+        runs[hasher.name, what] = _launches()
+        verify(FibSmallAir, proof, result, hasher)
+        spans = {s["name"]: s["seconds"] for s in tracing.last_spans()}
+        used = {k: v for k, v in runs[hasher.name, what].items() if v}
+        log(f"{hasher.name} {what}: fib 2^{log2_trace} prove {wall:.4f} s "
+            f"(barriers on), query positions with grinding "
+            f"{1000 * spans['determine_query_positions']:.1f} ms, nonce "
+            f"{proof.pow_nonce}; launches {used}; verified")
+
+    def must_launch(key, names) -> None:
+        for name in names:
+            if not REHEARSAL and runs[key][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the "
+                                     f"{key} prove")
+
+    rp64_kernels = ("rp64_hash_rows", "rp64_merge_rows", "rp64_merkle_tree",
+                    "gl_mul", "rp64_permute_rows", "rp64_coin_draw")
+    b3_kernels = ("blake3_hash_rows", "blake3_merge_rows",
+                  "blake3_merkle_tree", "blake3_coin_draw", "gl_mul")
+    # bench.py's default workload (Rp64_256) and the same with Blake3_256,
+    # each on the resident and the phased (fused FRI) route
+    for hasher, kernels_of in ((Rp64_256, rp64_kernels),
+                               (Blake3_256, b3_kernels)):
+        by_route = {route: timed_path(hasher, route, options)
+                    for route in ("resident", "fused")}
+        if by_route["resident"] != by_route["fused"]:
+            raise AssertionError(f"{hasher.name}: the phased proof differs "
+                                 "from the resident")
+        must_launch((hasher.name, "resident"), kernels_of)
+    for route in ("resident", "fused"):
+        counts = runs["rp64_256", route]
         k2 = counts["rp64_merge_rows"] + counts["rp64_merkle_tree"]
         if k2 > 30:
             raise AssertionError(f"{route}: {k2} K2 launches per prove (per "
                                  "level and tree kernel), more than 30")
     log("resident and phased proofs have the same bytes" + (
-        "" if REHEARSAL else "; the resident device run made no host "
+        "" if REHEARSAL else "; the resident device runs made no host "
         "synchronisation"))
+    # the CLI's default options (examples/cli.py: 28 queries, blowup 8,
+    # grinding 16, no extension, folding 8, remainder degree 31, Blake3_256)
+    cli = ProofOptions(num_queries=28, blowup_factor=8, grinding_factor=16,
+                       field_extension=FieldExtension.NONE,
+                       fri_folding_factor=8, fri_remainder_max_degree=31)
+    one_prove(Blake3_256, cli, "cli_default")
+    must_launch(("blake3_256", "cli_default"), b3_kernels)
+    # the other hashers, one prove each
+    one_prove(Blake3_192, options, "resident")
+    must_launch(("blake3_192", "resident"), b3_kernels)
+    one_prove(Sha3_256, options, "resident")
+    must_launch(("sha3_256", "resident"),
+                ("sha3_hash_rows", "sha3_merge_rows", "sha3_merkle_tree",
+                 "sha3_coin_draw", "gl_mul"))
+    one_prove(RpJive64_256, options, "host")
+    must_launch(("rp_jive64_256", "host"),
+                ("jive_hash_rows", "jive_merkle_tree", "gl_mul"))
+    prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
+    tracing.set_phase_sync(True)
     phase("4 main path", t0)
 
     # 5 ----- kernel times at the main path's shapes -------------------------
@@ -596,6 +812,58 @@ def main() -> int:
                      lambda: device_coin.draw_plain(cands, seed, 0, k, d),
                      _bound_draw(k, d))
 
+    def b3_hash_entry(m, k, dw=8):
+        words, blen = blake3.rows_from_u64(_rng_field(rng, (m, k), dev))
+        return entry((m, k, dw),
+                     lambda: blake3.blake3_hash_words(words, blen, dw),
+                     lambda: blake3.blake3_hash_words_plain(words, blen, dw),
+                     _bound_blake3(m, blen, dw))
+
+    def sha3_hash_entry(m, k):
+        words, blen = blake3.rows_from_u64(_rng_field(rng, (m, k), dev))
+        return entry((m, k), lambda: sha3.sha3_hash_words(words, blen),
+                     lambda: sha3.sha3_hash_words_plain(words, blen),
+                     _bound_sha3(m, blen))
+
+    def jive_hash_entry(m, k):
+        x = _rng_field(rng, (m, k), dev)
+        return entry((m, k), lambda: jive.jive_hash_rows(x),
+                     lambda: jive.jive_hash_rows_plain(x),
+                     _bound_jive(m * -(-k // 4), m * (8 * k + 32)))
+
+    def byte_merge_entry(m, dw, merge, plain, per_hash):
+        level = _words(rng, (2 * m, dw), dev)
+        l, r = level[0::2], level[1::2]
+        return entry((m, dw), lambda: merge(l, r), lambda: plain(l, r),
+                     _bound_byte_merge(m, dw, per_hash, 2 * m))
+
+    def byte_tree_entry(n, dw, levels, plain, per_hash):
+        leaves = _words(rng, (n, dw), dev)
+        return entry(("leaves", n, dw), lambda: levels(leaves),
+                     lambda: plain(leaves),
+                     _bound_byte_merge(n - 1, dw, per_hash, n))
+
+    def jive_tree_entry(n):
+        leaves = _rng_field(rng, (n, 4), dev)
+        return entry(("leaves", n), lambda: jive.jive_merkle_levels(leaves),
+                     lambda: jive.jive_merkle_levels_plain(leaves),
+                     _bound_jive(n - 1, (2 * n - 1) * 32))
+
+    def byte_draw_entry(coin, k, d):
+        dw = device_coin.BYTE_KINDS[coin][2]
+        seed_w = _words(rng, (dw,), dev)
+        cands = device_coin.byte_coin_ops(coin)[1](seed_w, 0, k)
+        # every candidate of these inputs is accepted (checked against the
+        # plain loop's counter), so the kernel hashes nothing: it reads the
+        # seed and k digests and writes k·d elements and the counter
+        want_c = device_coin.draw_plain(cands, seed_w, 0, k, d, coin)[1]
+        if int(want_c[0]) != k:
+            raise AssertionError(f"{coin}: a timed candidate was rejected")
+        return entry((k, d), lambda: byte_draw(coin, cands, seed_w, 0, k, d),
+                     lambda: device_coin.draw_plain(cands, seed_w, 0, k, d,
+                                                    coin),
+                     _bound_alu(0, 4 * dw * (k + 1) + 8 * k * d + 8))
+
     # K3's second shape: an NTT butterfly stage of the composition LDE
     # (strided halves times broadcast twiddles)
     bfly = _rng_field(rng, (big // 64, 2, 32, 3), dev)
@@ -631,14 +899,83 @@ def main() -> int:
          "winterfell_tpu/ops/device_coin.py:302)",
          "winterfell_tpu_torch/csrc/rescue.cu",
          [draw_entry(n_ccs, 3), draw_entry(1, 3)]),
+        # B10-B12 and the byte coins' draw kernels: the trace LDE, the
+        # composition LDE, a FRI layer, a level of the LDE tree and the
+        # coin's one-row reseed, the whole trees
+        ("blake3_hash_rows", "winterfell_tpu/ops/blake3_device.py:62 "
+         "(_compress_rows under blake3_hash_words :142; jnp program, no "
+         "Pallas kernel)", "winterfell_tpu_torch/csrc/blake3.cu",
+         [b3_hash_entry(big, 2), b3_hash_entry(big, 3 * comp_cols),
+          b3_hash_entry(big // 8, 24), b3_hash_entry(big, 2, 6),
+          b3_hash_entry(1, 18)]),
+        ("blake3_merge_rows", "winterfell_tpu/ops/blake3_device.py:153 "
+         "(blake3_merge_rows; jnp program, no Pallas kernel)",
+         "winterfell_tpu_torch/csrc/blake3.cu",
+         [byte_merge_entry(big // 2, 8, blake3.blake3_merge_rows,
+                           blake3.blake3_merge_rows_plain, ALU_PER_BLAKE3),
+          byte_merge_entry(1, 8, blake3.blake3_merge_rows,
+                           blake3.blake3_merge_rows_plain, ALU_PER_BLAKE3)]),
+        ("blake3_merkle_tree", "winterfell_tpu/ops/blake3_device.py:186 "
+         "(merkle_levels_blake3; jnp programs, no Pallas kernel)",
+         "winterfell_tpu_torch/csrc/blake3.cu",
+         [byte_tree_entry(n_, dw_, blake3.blake3_merkle_levels,
+                          blake3.blake3_merkle_levels_plain, ALU_PER_BLAKE3)
+          for n_, dw_ in ((big, 8), (big // 8, 8), (big // 512, 8),
+                          (big, 6))]),
+        ("blake3_coin_draw", "none: port-only (the JAX coin's "
+         "lax.while_loop over byte_coin_ops, "
+         "winterfell_tpu/ops/device_coin.py:106, :302)",
+         "winterfell_tpu_torch/csrc/blake3.cu (byte_coin.cuh)",
+         [byte_draw_entry("blake3_256", n_ccs, 3),
+          byte_draw_entry("blake3_256", 1, 3)]),
+        ("sha3_hash_rows", "winterfell_tpu/ops/sha3_device.py:57 (_keccak_f "
+         "under sha3_hash_words :92; jnp program, no Pallas kernel)",
+         "winterfell_tpu_torch/csrc/keccak.cu",
+         [sha3_hash_entry(big, 2), sha3_hash_entry(big, 3 * comp_cols),
+          sha3_hash_entry(big // 8, 24), sha3_hash_entry(1, 18)]),
+        ("sha3_merge_rows", "winterfell_tpu/ops/sha3_device.py:135 "
+         "(sha3_merge_rows; jnp program, no Pallas kernel)",
+         "winterfell_tpu_torch/csrc/keccak.cu",
+         [byte_merge_entry(big // 2, 8, sha3.sha3_merge_rows,
+                           sha3.sha3_merge_rows_plain, ALU_PER_KECCAK),
+          byte_merge_entry(1, 8, sha3.sha3_merge_rows,
+                           sha3.sha3_merge_rows_plain, ALU_PER_KECCAK)]),
+        ("sha3_merkle_tree", "winterfell_tpu/ops/sha3_device.py:160 "
+         "(merkle_levels_sha3; jnp programs, no Pallas kernel)",
+         "winterfell_tpu_torch/csrc/keccak.cu",
+         [byte_tree_entry(n_, 8, sha3.sha3_merkle_levels,
+                          sha3.sha3_merkle_levels_plain, ALU_PER_KECCAK)
+          for n_ in (big, big // 8, big // 512)]),
+        ("sha3_coin_draw", "none: port-only (the JAX coin's lax.while_loop "
+         "over byte_coin_ops, winterfell_tpu/ops/device_coin.py:106, :302)",
+         "winterfell_tpu_torch/csrc/keccak.cu (byte_coin.cuh)",
+         [byte_draw_entry("sha3_256", n_ccs, 3),
+          byte_draw_entry("sha3_256", 1, 3)]),
+        ("jive_hash_rows", "winterfell_tpu/ops/jive_device.py:84 "
+         "(jive_hash_rows over jive_permutation_rows :65; jnp program, no "
+         "Pallas kernel)", "winterfell_tpu_torch/csrc/jive.cu",
+         [jive_hash_entry(big, 2), jive_hash_entry(big, 3 * comp_cols),
+          jive_hash_entry(big // 8, 24)]),
+        ("jive_merkle_tree", "winterfell_tpu/ops/jive_device.py:153 "
+         "(merkle_levels_jive over jive_merge_rows :120; jnp programs, no "
+         "Pallas kernel)", "winterfell_tpu_torch/csrc/jive.cu",
+         [jive_tree_entry(big), jive_tree_entry(big // 8),
+          jive_tree_entry(big // 512)]),
     ]
+    # the path each kernel's launches are read from (its own prove):
+    # resident, and phased where the hasher has that route
+    path_of = {"rp64": "rp64_256", "gl": "rp64_256", "blake3": "blake3_256",
+               "sha3": "sha3_256", "jive": "rp_jive64_256"}
     kernels = []
     for name, replaces, source, shapes in records:
         main = shapes[0]
+        hasher_name = path_of[name.split("_")[0]]
+        route = "host" if hasher_name == "rp_jive64_256" else "resident"
+        phased = runs.get((hasher_name, "fused"), runs[hasher_name, route])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": runs["resident"][name],
-            "launches_phased": runs["phased"][name],
+            "replaces": replaces, "launches": runs[hasher_name, route][name],
+            "launches_phased": phased[name], "path": [hasher_name, route],
             "max_abs_err": errs[name], "max_diff": errs[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -656,8 +993,9 @@ def main() -> int:
     if REHEARSAL:
         log("rehearsal done (no verdict without a card)")
         return 0
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": count}}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -159,19 +159,35 @@ def test_layouts_the_kernel_cannot_take_raise(monkeypatch):
     with pytest.raises(ValueError, match="at most 8"):
         gl.gl_mul(deep, deep)
 
-    # the kernel's offsets are 32-bit: a product of 2^31 elements is refused
-    # (a broadcast, so nothing that size is allocated), and so is an operand
-    # whose strides reach past the limit (shown against a lowered limit: the
-    # real one needs a 16 GiB tensor)
-    with pytest.raises(ValueError, match="elements 2147483648"):
-        gl.gl_mul(a[:1, :1].expand(2, 2**30), 3)
-    x = torch.zeros((64, 100), dtype=torch.int64)
+    # the kernel's offsets are 32-bit: a product of 2^31 elements (a
+    # broadcast, so nothing that size is allocated) does not fit one launch,
+    # nor does an operand whose strides reach past the limit (shown against
+    # a lowered limit: the real one needs a 16 GiB tensor). Such a product
+    # is split into launches that each fit, and the parts make the product
+    assert not fk.mul_layout(a[:1, :1].expand(2, 2**30), 3).fits
+    x = _t(np.random.default_rng(5).integers(0, 2**64, size=(64, 100),
+                                            dtype=np.uint64))
     monkeypatch.setattr(fk, "INDEX_LIMIT", 1000)
-    assert fk.mul_layout(x[:10, :5], x[:10, 5:10]).numel == 50  # reach 905
-    with pytest.raises(ValueError, match="a's extent 1001"):
-        gl.gl_mul(x[:11, :1], 3)
-    with pytest.raises(ValueError, match="b's extent 1805"):
-        gl.gl_mul(x[:10, :5], x[::2, 5:10][:10])
+    lay = fk.mul_layout(x[:10, :5], x[:10, 5:10])  # reach 905
+    assert lay.fits and lay.numel == 50
+    assert not fk.mul_layout(x[:11, :1], 3).fits  # a's extent 1001
+    assert not fk.mul_layout(x[:10, :5], x[::2, 5:10][:10]).fits  # b's 1805
+    leaves = []
+
+    def leaf(a, b, out, layout):
+        assert layout.fits and out.is_contiguous()
+        leaves.append(layout.numel)
+        out.copy_(fk.gl_mul_plain(a, b))
+
+    for y, z in ((x[:11, :1], 3), (x[:10, :5], x[::2, 5:10][:10]),
+                 (x[:, :40], x[:, 60:]), (x[:1, :1].expand(30, 100), x[0])):
+        shape = torch.broadcast_shapes(y.shape, () if isinstance(z, int)
+                                       else z.shape)
+        out = torch.empty(shape, dtype=torch.int64)
+        leaves.clear()
+        fk.mul_into(y, z, out, leaf)
+        assert len(leaves) > 1 and sum(leaves) == out.numel()
+        assert torch.equal(out, fk.gl_mul_plain(y, z))
 
 
 def test_kernel_on_cpu_tensors_raises_instead_of_falling_back():

@@ -11,8 +11,10 @@ import pytest
 import torch
 
 from winterfell_tpu_torch import FieldExtension, ProofOptions, Rp64_256, F64
+from winterfell_tpu_torch.crypto.hashers import Blake3_256, RpJive64_256
 from winterfell_tpu_torch.examples import fibonacci as tfib
-from winterfell_tpu_torch.ops import device_coin, field_kernels, rescue
+from winterfell_tpu_torch.ops import blake3, device_coin, field_kernels, jive
+from winterfell_tpu_torch.ops import rescue, sha3
 from winterfell_tpu_torch.ops import goldilocks as gl
 from winterfell_tpu_torch.prover import device as prover_device
 from winterfell_tpu_torch.prover.device import GoldilocksProver
@@ -178,3 +180,93 @@ def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):
     # a trace this small has no FRI layer (host coin): no one-row reseed
     assert launches["rp64_hash_rows"] > 0 and launches["rp64_merkle_tree"] > 0
     assert launches["gl_mul"] > 0
+
+
+def _words(seed, shape, device):
+    """Random u32 words as int32, the first row all ones."""
+    a = np.random.default_rng(seed).integers(0, 2**32, size=shape,
+                                             dtype=np.uint32)
+    a[0] = 2**32 - 1
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+def test_byte_hasher_and_jive_kernels_equal_plain(cuda, monkeypatch):
+    """B10 (BLAKE3, 8 and 6 digest words), B11 (SHA3) and B12 (Jive): the
+    row hash at widths 1 ... 24 elements (and a SHA3 row over two rate
+    blocks), the merge of a level's sibling pairs, the tree at leaf counts
+    around the one-block tail and the multi-level blocks, each on random
+    and corner values; the byte coins' draw kernels with rejected
+    candidates planted; and K3 split into several launches under a lowered
+    INDEX_LIMIT."""
+    tail, chunk = 1 << rescue._TREE_TAIL_LOG, 1 << rescue._TREE_CHUNK_LOG
+    for k in (1, 2, 3, 8, 24, 40):
+        for m in (1, 1000):
+            for rows in (_rand(m + k, (m, k), cuda), _corners(m, k, cuda)):
+                words, byte_len = blake3.rows_from_u64(rows)
+                assert torch.equal(sha3.sha3_hash_words(words, byte_len),
+                                   sha3.sha3_hash_words_plain(words,
+                                                              byte_len)), k
+                assert torch.equal(jive.jive_hash_rows(rows),
+                                   jive.jive_hash_rows_plain(rows)), k
+                for dw in (8, 6):
+                    assert torch.equal(
+                        blake3.blake3_hash_words(words, byte_len, dw),
+                        blake3.blake3_hash_words_plain(words, byte_len, dw))
+    cases = [(8, blake3.blake3_merge_rows, blake3.blake3_merge_rows_plain,
+              blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
+             (6, blake3.blake3_merge_rows, blake3.blake3_merge_rows_plain,
+              blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
+             (8, sha3.sha3_merge_rows, sha3.sha3_merge_rows_plain,
+              sha3.sha3_merkle_levels, sha3.sha3_merkle_levels_plain),
+             (4, jive.jive_merge_rows, jive.jive_merge_rows_plain,
+              jive.jive_merkle_levels, jive.jive_merkle_levels_plain)]
+    for w, merge, merge_plain, levels, levels_plain in cases:
+        for n in (1, 2, 4, tail // 2, tail, 2 * tail, chunk, 4 * chunk):
+            for leaves in ((_rand(n, (n, 4), cuda), _corners(n, 4, cuda))
+                           if w == 4 else (_words(n, (n, w), cuda),)):
+                if n > 1:
+                    assert torch.equal(merge(leaves[0::2], leaves[1::2]),
+                                       merge_plain(leaves[0::2],
+                                                   leaves[1::2])), (w, n)
+                got, want = levels(leaves), levels_plain(leaves)
+                assert len(got) == len(want), (w, n)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (w, n, a.shape[0])
+    for kind in ("blake3_256", "blake3_192", "sha3_256"):
+        dw = device_coin.BYTE_KINDS[kind][2]
+        _, next_candidates = device_coin.byte_coin_ops(kind)
+        for k, d, reject in ((1, 3, ()), (6, 3, ()), (4, 1, (2,)),
+                             (2, 2, (0, 1))):
+            seed = _words(k + dw, (dw,), cuda)
+            cands = next_candidates(seed, 0, k).clone()
+            for j in reject:  # a u64 word >= p: that counter is rejected
+                cands[j, :2] = -1
+            got = device_coin.byte_draw_kernel(kind, cands, seed, 0, k, d)
+            want = device_coin.draw_plain(cands, seed, 0, k, d, kind)
+            assert torch.equal(got[0], want[0]), (kind, k, d, reject)
+            assert torch.equal(got[1], want[1]), (kind, k, d, reject)
+    x, y = _rand(3, (64, 100), cuda, 2**64), _rand(4, (100,), cuda, 2**64)
+    monkeypatch.setattr(field_kernels, "INDEX_LIMIT", 1000)
+    field_kernels.reset_launches()
+    got = field_kernels.gl_mul_kernel(x, y)
+    assert field_kernels.LAUNCHES["gl_mul"] > 1
+    assert torch.equal(got, field_kernels.gl_mul_plain(x, y))
+
+
+def test_byte_hasher_card_proofs_equal_cpu_proof(cuda, monkeypatch):
+    """Trace 2^10 with Blake3_256 on its three routes and RpJive64_256 on
+    its one (host coin): the card's bytes equal the CPU's."""
+    opts = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
+    prover_cls = GoldilocksProver.accelerate(tfib.FibSmallProver)
+    for hasher, routes in ((Blake3_256, ("resident", "fused", "host")),
+                           (RpJive64_256, ("host",))):
+        cpu = prover_cls(opts, hasher, device="cpu").prove(
+            tfib.build_fib_trace(F64, 2048)).to_bytes()
+        for route in routes:
+            monkeypatch.setattr(prover_device, "_RESIDENT_ON_F64",
+                                route == "resident")
+            monkeypatch.setattr(prover_device, "_FUSED_FRI_ON",
+                                route != "host")
+            card = prover_cls(opts, hasher).prove(
+                tfib.build_fib_trace(F64, 2048, device=cuda))
+            assert card.to_bytes() == cpu, (hasher.name, route)

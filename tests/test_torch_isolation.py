@@ -1,6 +1,7 @@
 """The port stands alone: no file of winterfell_tpu_torch/ (nor chip_smoke.py)
 imports jax or the JAX package, and the state that defines a proof — Rescue
-constants, proof options, traces — crosses between the packages unchanged."""
+and Jive constants, proof options, traces, digest words — crosses between
+the packages unchanged."""
 
 import os
 import re
@@ -12,11 +13,13 @@ import torch
 
 from winterfell_tpu.air import FieldExtension, ProofOptions
 from winterfell_tpu.crypto import rescue_constants as jax_rc
+from winterfell_tpu.crypto import rescue_jive_rp62_constants as jax_jive
 from winterfell_tpu.examples.fibonacci import build_fib_trace
 from winterfell_tpu.math.fields import F64
 from winterfell_tpu.utils.serde import ByteWriter
 from winterfell_tpu_torch import interop
 from winterfell_tpu_torch.crypto import rescue_constants as port_rc
+from winterfell_tpu_torch.crypto import rescue_jive_constants as port_jive
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -54,6 +57,8 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(path):
                                   "RP64_256_ARK2"])
 def test_rescue_constants_equal(name):
     assert getattr(port_rc, name) == getattr(jax_rc, name)
+    jive = "JIVE_" + name.rsplit("_", 1)[1]  # RpJive64_256's table of the kind
+    assert getattr(port_jive, jive) == getattr(jax_jive, jive)
 
 
 def test_tensor_roundtrip_keeps_bits():
@@ -63,6 +68,11 @@ def test_tensor_roundtrip_keeps_bits():
     t = interop.tensor_from_u64(a)
     assert t.dtype == torch.int64 and t.shape == (33, 3)
     assert np.array_equal(interop.u64_from_tensor(t), a)
+    words = rng.integers(0, 2**32, size=(5, 8), dtype=np.uint32)
+    words[0] = 2**32 - 1
+    w = interop.tensor_from_u32(words)
+    assert w.dtype == torch.int32 and w.shape == (5, 8)
+    assert np.array_equal(interop.u32_from_tensor(w), words)
 
 
 def test_trace_and_options_cross_over():

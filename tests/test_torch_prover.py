@@ -1,14 +1,16 @@
 """The slice as a whole: the port's GoldilocksProver, run on the CPU, gives
 the same proof bytes as the JAX package's host FibSmallProver on each of its
-three routes (resident, phased + fused FRI, phased + host coin), each
-package's verify() accepts the other's proof, and the port picks the route
-the JAX package's GoldilocksProver would pick."""
+three routes (resident, phased + fused FRI, phased + host coin) and with
+each f64 hasher (Rp64_256, Blake3_256, Blake3_192, Sha3_256, RpJive64_256),
+grinding included, each package's verify() accepts the other's proof, and
+the port picks the route the JAX package's GoldilocksProver would pick."""
 
 import jax
 import pytest
 
 from winterfell_tpu.air import FieldExtension, ProofOptions
 from winterfell_tpu.air.proof import Proof
+from winterfell_tpu.crypto import hashers as jax_hashers
 from winterfell_tpu.crypto.hashers import Rp64_256
 from winterfell_tpu.examples.fibonacci import (
     FibSmallAir,
@@ -19,12 +21,26 @@ from winterfell_tpu.examples.fibonacci import (
 from winterfell_tpu.math.fields import F64
 from winterfell_tpu.verifier import verify
 import winterfell_tpu_torch as wt
+from winterfell_tpu_torch.crypto import hashers as port_hashers
 from winterfell_tpu_torch.examples import fibonacci as tfib
 from winterfell_tpu_torch.prover import device as port_device
 from winterfell_tpu_torch.prover.device import GoldilocksProver
 from winterfell_tpu_torch.utils import tracing
 
 jax.config.update("jax_platforms", "cpu")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread for torch: these proves work on tensors of a few
+    thousand rows, where the thread pool only adds overhead, and several
+    test workers share the cores."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 PortProver = GoldilocksProver.accelerate(tfib.FibSmallProver)
 ROUTES = ("resident", "fused", "host")
@@ -104,6 +120,16 @@ def test_port_proof_bytes_equal_jax_host_proof(log_n, ext_name, monkeypatch):
                                                                    seq))
         assert _route_taken() == "host"
         assert port.to_bytes() == ref.to_bytes()
+        # grinding: the options of tests/test_device_prover.py:58-64
+        # (grinding 4) with the Python nonce scan of the Rp64 coin
+        ref = FibSmallProver(ProofOptions(28, 8, 4, FieldExtension.CUBIC, 8,
+                                          31), Rp64_256).prove(
+            build_fib_trace(F64, seq)).to_bytes()
+        port = PortProver(wt.ProofOptions(28, 8, 4, wt.FieldExtension.CUBIC,
+                                          8, 31), wt.Rp64_256,
+                          device="cpu").prove(tfib.build_fib_trace(wt.F64,
+                                                                   seq))
+        assert port.to_bytes() == ref
 
 
 @pytest.mark.parametrize("batching,partitions", [("LINEAR", 2),
@@ -135,6 +161,54 @@ def test_port_proof_with_batching_and_partitions(batching, partitions,
     assert by_route == {"resident": ref, "host": ref}
 
 
+# (hasher name, extension, partitions, grinding, routes the JAX dispatch
+# gives it): the cases of tests/test_device_f64_byte_hashers.py, fib 256
+# with ProofOptions(28, 8, grinding, ext, 4, 7); RpJive64_256 has no device
+# coin, so only the host-coin route
+_BYTE_HASHER_CASES = {
+    "blake3": [("blake3_256", "NONE", None, 0, ROUTES),
+               ("blake3_256", "CUBIC", None, 0, ROUTES),
+               ("blake3_192", "CUBIC", None, 0, ROUTES),
+               ("blake3_256", "QUADRATIC", (2, 2), 0, ("resident", "host")),
+               ("blake3_256", "CUBIC", None, 4, ("resident",))],
+    "sha3_jive": [("sha3_256", "NONE", None, 0, ROUTES),
+                  ("sha3_256", "CUBIC", None, 0, ("resident",)),
+                  ("rp_jive64_256", "QUADRATIC", None, 0, ("host",))],
+}
+
+
+def _byte_hasher_options(pkg, ext_name, partitions, grinding):
+    options = pkg.ProofOptions(28, 8, grinding,
+                               getattr(pkg.FieldExtension, ext_name), 4, 7)
+    return options.with_partitions(*partitions) if partitions else options
+
+
+@pytest.mark.parametrize("family", sorted(_BYTE_HASHER_CASES))
+def test_port_byte_hasher_proofs_equal_jax_host_proof(family, monkeypatch):
+    """Blake3_256, Blake3_192, Sha3_256 and RpJive64_256: each route the JAX
+    dispatch gives the hasher yields the JAX host prover's bytes (with
+    partitions and with grinding 4, whose BLAKE3 nonce scan runs in the
+    native library), and each verifier accepts the other package's proof."""
+    for name, ext_name, partitions, grinding, routes in \
+            _BYTE_HASHER_CASES[family]:
+        jax_h, port_h = jax_hashers.HASHERS[name], port_hashers.HASHERS[name]
+        ref = FibSmallProver(
+            _byte_hasher_options(_JaxOpts, ext_name, partitions, grinding),
+            jax_h).prove(build_fib_trace(F64, 256)).to_bytes()
+        prover = PortProver(
+            _byte_hasher_options(wt, ext_name, partitions, grinding), port_h,
+            device="cpu")
+        by_route = _prove_on_routes(
+            prover, lambda: tfib.build_fib_trace(wt.F64, 256), monkeypatch,
+            routes)
+        assert by_route == {route: ref for route in routes}, (name, ext_name)
+        result = compute_fib_term(F64, 256)
+        proof = wt.Proof.from_bytes(ref)
+        wt.verify(tfib.FibSmallAir, proof, result, port_h)
+        verify(FibSmallAir, Proof.from_bytes(by_route[routes[0]]), result,
+               jax_h)
+
+
 class _Taken(Exception):
     pass
 
@@ -163,11 +237,13 @@ _DISPATCH_CASES = [
 
 def test_port_route_matches_jax_dispatch(monkeypatch):
     """The resident/phased choice equals the JAX GoldilocksProver's for the
-    same shapes. Each prove() is stopped where its route begins, before any
-    device work (the byte pins above check from the phase marks that a
+    same shapes and each f64 hasher (RpJive64_256, with no device coin, is
+    always phased). Each prove() is stopped where its route begins, before
+    any device work (the byte pins above check from the phase marks that a
     forced route runs to its end); where a case needs an LDE above the
     resident limit, the limit is monkeypatched on both sides (proving 2^20
-    rows on the CPU would take minutes)."""
+    rows on the CPU would take minutes). A hasher the JAX prover refuses
+    fails the port's with the same assertion."""
     from winterfell_tpu.prover import device as jax_device
 
     monkeypatch.setattr(jax_device.GoldilocksProver, "_prove_resident",
@@ -176,20 +252,51 @@ def test_port_route_matches_jax_dispatch(monkeypatch):
     monkeypatch.setattr(GoldilocksProver, "_prove_resident",
                         _stop("resident"))
     monkeypatch.setattr(GoldilocksProver, "_prove_phased", _stop("phased"))
-    for log_n, fold, rem_deg, limit, want in _DISPATCH_CASES:
+    for (log_n, fold, rem_deg, limit, want), name in (
+            (case, name) for case in _DISPATCH_CASES
+            for name in port_hashers.HASHERS):
         for mod in (jax_device, port_device):
             monkeypatch.setattr(mod, "_RESIDENT_ON_F64", True)
             monkeypatch.setattr(mod, "_RESIDENT_LIMIT_F64",
                                 limit or 1 << 22)
+        if name == "rp_jive64_256":
+            want = "phased"
         seq = 2 << log_n
         expected = _route_of(
             jax_device.GoldilocksProver.accelerate(FibSmallProver)(
-                _options(_JaxOpts, "CUBIC", fold, rem_deg), Rp64_256),
+                _options(_JaxOpts, "CUBIC", fold, rem_deg),
+                jax_hashers.HASHERS[name]),
             build_fib_trace(F64, seq))
         got = _route_of(PortProver(_options(wt, "CUBIC", fold, rem_deg),
-                                   wt.Rp64_256, device="cpu"),
+                                   port_hashers.HASHERS[name], device="cpu"),
                         tfib.build_fib_trace(wt.F64, seq))
-        assert (got, expected) == (want, want), (log_n, fold, rem_deg, limit)
+        assert (got, expected) == (want, want), (log_n, fold, rem_deg, limit,
+                                                 name)
+    # the byte hashers' OOD row is one BLAKE3 chunk at most on the resident
+    # route (the JAX rule ood_bytes <= 1024, device.py:1111-1118; no fib
+    # AIR reaches it): below this AIR's 144 OOD bytes they go phased, and
+    # Rp64_256 stays resident
+    monkeypatch.setattr(port_device, "_OOD_BYTES_LIMIT", 100)
+    for name, want in (("blake3_256", "phased"), ("sha3_256", "phased"),
+                       ("rp64_256", "resident")):
+        got = _route_of(PortProver(_options(wt, "CUBIC", 8, 3),
+                                   port_hashers.HASHERS[name], device="cpu"),
+                        tfib.build_fib_trace(wt.F64, 16))
+        assert got == want, name
+
+    class Other:  # a hasher with no device row hash
+        pass
+
+    refused = []
+    for prover, trace in (
+            (jax_device.GoldilocksProver.accelerate(FibSmallProver)(
+                _options(_JaxOpts, "CUBIC"), Other), build_fib_trace(F64, 16)),
+            (PortProver(_options(wt, "CUBIC"), Other, device="cpu"),
+             tfib.build_fib_trace(wt.F64, 16))):
+        with pytest.raises(AssertionError) as err:
+            prover.prove(trace)
+        refused.append(str(err.value))
+    assert refused[0] == refused[1]
 
 
 def test_port_host_prover_bytes_equal_jax_host_prover():

@@ -2,13 +2,15 @@
 
 The same STARK protocol and proof bytes as the JAX package, with the compute
 path on torch tensors (exact int64 Goldilocks arithmetic, radix-2 NTT) and the
-Rescue-Prime row hash and Merkle merge as hand-written CUDA kernels for
-Hopper (``csrc/``). The transcript and proof wire format are the same
+row hashes and Merkle merges of every hasher as hand-written CUDA kernels
+for Hopper (``csrc/``). The transcript and proof wire format are the same
 byte-exact mirrors of the reference (facebook/winterfell).
 
-This slice covers the f64 path with Rp64_256 commitments: the host prover
-and verifier, and :class:`prover.device.GoldilocksProver`, which runs on a
-CUDA card by default (``device="cpu"`` runs the same tensor code on the CPU).
+This port covers the f64 path with the hashers of the JAX package's f64
+prover (Rp64_256, RpJive64_256, Blake3_256, Blake3_192, Sha3_256): the host
+prover and verifier, and :class:`prover.device.GoldilocksProver`, which runs
+on a CUDA card by default (``device="cpu"`` runs the same tensor code on the
+CPU).
 """
 
 from .air import (
@@ -24,7 +26,14 @@ from .air import (
     TransitionConstraintDegree,
 )
 from .air.proof import Proof
-from .crypto.hashers import Rp64_256
+from .crypto.hashers import (
+    HASHERS,
+    Blake3_192,
+    Blake3_256,
+    Rp64_256,
+    RpJive64_256,
+    Sha3_256,
+)
 from .crypto.merkle import BatchMerkleProof, MerkleTree
 from .crypto.random_coin import DefaultRandomCoin
 from .math.fields import F64, Field
@@ -40,11 +49,14 @@ __all__ = [
     "Assertion",
     "BatchMerkleProof",
     "BatchingMethod",
+    "Blake3_192",
+    "Blake3_256",
     "DefaultRandomCoin",
     "EvaluationFrame",
     "F64",
     "Field",
     "FieldExtension",
+    "HASHERS",
     "MerkleTree",
     "PartitionOptions",
     "Proof",
@@ -52,6 +64,8 @@ __all__ = [
     "Prover",
     "ProverError",
     "Rp64_256",
+    "RpJive64_256",
+    "Sha3_256",
     "Trace",
     "TraceInfo",
     "TraceTable",

@@ -1,9 +1,11 @@
 """Carrying state between the JAX package and the port.
 
-What defines a proof is the trace, the Rescue constants and the proof
+What defines a proof is the trace, the hasher's constants and the proof
 options. Both packages hold field elements the same way at their numpy
-boundary — uint64 arrays of canonical values — so crossing over is a dtype
-view. These helpers take plain numpy arrays, ints and bytes only.
+boundary — uint64 arrays of canonical values — and BLAKE3 / SHA3 digests
+and coin seeds the same way too — uint32 arrays of little-endian words — so
+crossing over is a dtype view. These helpers take plain numpy arrays, ints
+and bytes only.
 """
 
 from __future__ import annotations
@@ -26,6 +28,18 @@ def tensor_from_u64(arr: np.ndarray, device="cpu") -> torch.Tensor:
 def u64_from_tensor(t: torch.Tensor) -> np.ndarray:
     """int64 tensor → uint64 array with the same bits, on the host."""
     return t.detach().cpu().contiguous().numpy().view(np.uint64).copy()
+
+
+def tensor_from_u32(arr: np.ndarray, device="cpu") -> torch.Tensor:
+    """uint32 word array (digests, seeds) → int32 tensor with the same
+    bits, on ``device``."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint32)
+    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+
+
+def u32_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """int32 word tensor → uint32 array with the same bits, on the host."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint32).copy()
 
 
 def trace_from_numpy(rows_u64: np.ndarray, device=None) -> TraceTable:

@@ -3,14 +3,14 @@ with ctypes, and reports what the compiler made of a source.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
 ``_build/lib<name>-<hash>.so`` beside the package, keyed by a hash of the
-source and the flags, at first use. ``build_all()`` starts one ``nvcc`` per
+source, the shared headers (``csrc/*.cuh``) and the flags, at first use. ``build_all()`` starts one ``nvcc`` per
 source at once and waits for all of them. No PyTorch header is included, so a
 build takes seconds. The C entry points take raw device pointers, sizes and
 a stream, and return ``cudaGetLastError()`` of their launch.
 
     python -m winterfell_tpu_torch.ops._build --sass [FILE ...] [--out DIR]
 
-prints, per source (``csrc/rescue.cu`` by default), one JSON line read from
+prints, per source (every ``csrc/*.cu`` by default), one JSON line read from
 the source built as ``load`` builds it, to a cubin, with ``-Xptxas -v`` (and
 writes it, with the SASS listing and the ptxas output, under ``--out``). Per
 kernel:
@@ -19,9 +19,12 @@ kernel:
   ptxas reports;
 - ``static``: the kernel's SASS instructions by class, each counted once;
 - ``per_permutation``: the instructions that one thread issues for one
-  permutation, by class: the round loop (the largest loop that runs
-  ``ROUNDS`` = 7 times) with every loop inside it weighted by its trip count,
-  plus the code outside every loop once (loads, stores, the canonical fix).
+  permutation, by class: the round loop (the largest loop that runs one of
+  ``ROUNDS``, 7 for Rescue or 24 for Keccak-f, times) with every loop inside
+  it weighted by its trip count, plus the code outside every loop once
+  (loads, stores, the canonical fix). A kernel whose rounds are unrolled
+  (BLAKE3) has none: its ``static`` count is one compression where the
+  kernel compresses once (the merge).
   A loop's trip count is the immediate of the compare that sets its
   branch's predicate; loops outside the round loop (the round-constant copy
   into shared memory, the K1 absorb loop) are left out. Where several
@@ -51,7 +54,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("rescue", "goldilocks")
+SOURCES = ("rescue", "goldilocks", "blake3", "keccak", "jive")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -64,8 +67,14 @@ def _tool(name: str) -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, named by a hash of the source, every header of
+    csrc/ and the flags."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
+            os.path.join(CSRC, f) for f in os.listdir(CSRC)
+            if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            key.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
 
 
@@ -125,7 +134,7 @@ CLASSES = [("IMAD.WIDE", "IMAD.WIDE"), ("IMAD.MOV", "IMAD.MOV/SHL/IADD"),
 _SASS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_.]*)([^;]*);")
 _FUNC = re.compile(r"Function : (\S+)")
-ROUNDS = 7
+ROUNDS = (7, 24)
 
 
 def _run(cmd) -> str:
@@ -208,14 +217,14 @@ def _per_permutation(ins):
     """Instructions by class that one thread issues for one permutation (see
     the module's notes), and the loops read; None without a round loop."""
     loops = _loops(ins)
-    rounds = [lp for lp in loops if lp[2] == ROUNDS]
+    rounds = [lp for lp in loops if lp[2] in ROUNDS]
     if not rounds:
         return None
-    r0, r1, _ = max(rounds, key=lambda lp: lp[1] - lp[0])
+    r0, r1, trips = max(rounds, key=lambda lp: lp[1] - lp[0])
     counts = collections.Counter()
     for i, (_, _, op, _) in enumerate(ins):
         if r0 <= i <= r1:
-            weight = ROUNDS
+            weight = trips
             for a, b, trip in loops:
                 if r0 <= a and b <= r1 and (a, b) != (r0, r1) and a <= i <= b:
                     if trip is None:
@@ -291,13 +300,14 @@ def sass_report(source: str, work: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sass", nargs="*", required=True, metavar="FILE",
-                    help="sources to report on (default csrc/rescue.cu)")
+                    help="sources to report on (default every csrc/*.cu)")
     ap.add_argument("--out", default=None,
                     help="directory for the JSON lines and SASS listings")
     args = ap.parse_args()
     out = args.out or tempfile.mkdtemp(prefix="sass_report_")
     os.makedirs(out, exist_ok=True)
-    for i, source in enumerate(args.sass or [os.path.join(CSRC, "rescue.cu")]):
+    default = [os.path.join(CSRC, f"{name}.cu") for name in SOURCES]
+    for i, source in enumerate(args.sass or default):
         work = os.path.join(out, str(i))
         os.makedirs(work, exist_ok=True)
         rec = sass_report(os.path.abspath(source), work)

@@ -1,5 +1,5 @@
-"""The Fiat-Shamir coin on the device, for Rp64_256 over f64: the port of
-winterfell_tpu/ops/device_coin.py (its Rp64_256 part).
+"""The Fiat-Shamir coin on the device for the f64 prover: the port of
+winterfell_tpu/ops/device_coin.py (its Rp64_256 and byte-hasher parts).
 
 The host :class:`~winterfell_tpu_torch.crypto.random_coin.DefaultRandomCoin`
 (crypto/src/random/default.rs:82-247) needs a host round trip at every
@@ -14,8 +14,16 @@ result pulls (prover/device.py, resident route):
   (``permute_rows``, one launch for all candidates of the draws) and the
   draw kernel runs the rejection loop.
 
-Both kernels are in ``csrc/rescue.cu`` beside K1 and K2, and share their
-permutation. Each has a wrapper (for a CUDA tensor it launches the kernel on
+For the byte hashers (Blake3_256, Blake3_192, Sha3_256) the seed is the
+digest's little-endian u32 words, a (dw,) int32 tensor (``words_to_seed``
+gives the host coin's bytes back); reseed is one merge launch of the
+hasher's kernel (``ops/blake3.py``, ``ops/sha3.py``); the candidates
+hash(seed ‖ LE64(counter)) of the draws come from one row-hash launch, and
+the hasher's draw kernel (``csrc/byte_coin.cuh``) runs the rejection loop,
+hashing further counters itself past a rejected candidate.
+
+The Rp64_256 kernels are in ``csrc/rescue.cu`` beside K1 and K2, and share
+their permutation. Each has a wrapper (for a CUDA tensor it launches the kernel on
 the current stream without synchronising and adds one to its count in
 ``LAUNCHES``; a CPU tensor goes to the plain version) and a plain PyTorch
 version, like the kernels of ``ops/rescue.py``. The counter is a Python
@@ -32,14 +40,25 @@ import numpy as np
 import torch
 
 from ..math.fields import GOLDILOCKS_P
+from . import blake3, rescue, sha3
 from . import goldilocks as gl
-from . import rescue
 
 P = GOLDILOCKS_P
 MAX_TRIES = 1000  # a draw gives up after this many candidates, as the host coin
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"rp64_permute_rows": 0, "rp64_coin_draw": 0}
+LAUNCHES: Dict[str, int] = {"rp64_permute_rows": 0, "rp64_coin_draw": 0,
+                            "blake3_coin_draw": 0, "sha3_coin_draw": 0}
+
+# byte-hasher coin kind -> (row hash, merge, digest words, draw kernel name)
+BYTE_KINDS = {
+    "blake3_256": (blake3.blake3_hash_words, blake3.blake3_merge_rows, 8,
+                   "blake3_coin_draw"),
+    "blake3_192": (blake3.blake3_hash_words, blake3.blake3_merge_rows, 6,
+                   "blake3_coin_draw"),
+    "sha3_256": (sha3.sha3_hash_words, sha3.sha3_merge_rows, 8,
+                 "sha3_coin_draw"),
+}
 
 
 def reset_launches() -> None:
@@ -62,8 +81,22 @@ def u64_to_seed(vals) -> bytes:
     return np.ascontiguousarray(np.asarray(vals).astype("<u8")).tobytes()
 
 
-def seed_tensor(seed: bytes, device) -> torch.Tensor:
-    """Host coin seed bytes -> the (4,) device seed."""
+def seed_to_words(seed: bytes) -> np.ndarray:
+    """Digest bytes -> little-endian uint32 word vector (byte hashers)."""
+    return np.frombuffer(seed, dtype="<u4").copy()
+
+
+def words_to_seed(words) -> bytes:
+    """uint32 (or int32) digest words (numpy) -> digest bytes."""
+    return np.ascontiguousarray(np.asarray(words)).astype("<u4").tobytes()
+
+
+def seed_tensor(seed: bytes, device, kind: str = "rp64_256") -> torch.Tensor:
+    """Host coin seed bytes -> the device seed of coin ``kind``: (4,) int64
+    digest elements for Rp64_256, (dw,) int32 digest words for a byte
+    hasher."""
+    if kind in BYTE_KINDS:
+        return torch.from_numpy(seed_to_words(seed).view(np.int32)).to(device)
     return torch.from_numpy(seed_to_u64(seed).view(np.int64)).to(device)
 
 
@@ -142,15 +175,54 @@ def rp64_coin_ops():
     return merge, next_candidates
 
 
-def u64_ext_decoder(p: int, degree: int):
-    """Decoder of an Rp64 candidate digest (4,) -> ``(ok, elem (degree,))``:
-    the first ``degree`` digest elements, ok iff each is < p
-    (Field.try_from_random_bytes). Rp64 digest elements are canonical, so ok
-    always holds; the check stays for exactness. (The JAX decoder's
-    ``from_words`` form, for byte-hasher digests, comes with those hashers.)"""
+def _candidate_messages(seed, counter0: int, t: int):
+    """(t, dw + 2) int32 messages seed ‖ LE64(c) for c = counter0 + 1 ..
+    counter0 + t (blake/mod.rs:41-46 merge_with_int), built on the device
+    from the seed tensor: no host copy."""
+    ctr = torch.arange(counter0 + 1, counter0 + t + 1, dtype=torch.int64,
+                       device=seed.device)
+    return torch.cat([seed.reshape(1, -1).expand(t, seed.shape[0]),
+                      ctr.view(torch.int32).reshape(t, 2)], dim=1)
+
+
+def byte_coin_ops(kind: str):
+    """``(merge, next_candidates)`` for a byte-hasher coin
+    (winterfell_tpu/ops/device_coin.py:106):
+
+    - ``merge(seed, other)``: the reseed, hash(seed ‖ other) of two (dw,)
+      digests, one merge launch;
+    - ``next_candidates(seed, counter0, t)``: the (t, dw) candidate digests
+      hash(seed ‖ LE64(c)) for c = counter0 + 1 .. counter0 + t, one
+      row-hash launch."""
+    hash_words, merge_rows, dw, _ = BYTE_KINDS[kind]
+
+    def merge(seed, other):
+        return merge_rows(seed.reshape(1, dw), other.reshape(1, dw)).reshape(dw)
+
+    def next_candidates(seed, counter0: int, t: int):
+        return hash_words(_candidate_messages(seed, counter0, t), 4 * dw + 8,
+                          dw)
+
+    return merge, next_candidates
+
+
+def u64_ext_decoder(p: int, degree: int, from_words: bool = False):
+    """Decoder of a candidate digest -> ``(ok, elem (degree,))``: its first
+    ``degree`` little-endian u64 values, ok iff each is < p
+    (Field.try_from_random_bytes). ``from_words``: the digest is (dw,) int32
+    words, read as u64 from word pairs and zero-padded past a truncated
+    digest (device_coin.py:272-289); else (4,) Rp64 digest elements, which
+    are canonical, so ok always holds there (the check stays for
+    exactness)."""
 
     def decode(cand):
-        vals = cand[:degree]
+        if from_words:
+            need = 2 * degree
+            if cand.shape[0] < need:
+                cand = torch.cat([cand, cand.new_zeros(need - cand.shape[0])])
+            vals = cand[:need].contiguous().view(torch.int64)
+        else:
+            vals = cand[:degree]
         ok = bool(gl._ult(vals, gl._s64(p)).all())
         return ok, vals
 
@@ -162,16 +234,27 @@ def u64_ext_decoder(p: int, degree: int):
 # ================================================================================
 
 
-def draw_plain(cands, seed, counter0: int, k: int, d: int):
-    """The serial loop of ``draw_kernel`` in plain PyTorch (reads the
-    device to test each candidate): (elems (k, d), counter (1,))."""
-    decode = u64_ext_decoder(P, d)
+def draw_plain(cands, seed, counter0: int, k: int, d: int,
+               kind: str = "rp64_256"):
+    """The serial loop of the draw kernels in plain PyTorch (reads the device
+    to test each candidate): (elems (k, d), counter (1,)). ``cands`` are the
+    permuted candidate states (t, 12) for Rp64_256, the candidate digests
+    (t, dw) for a byte hasher."""
+    byte = kind in BYTE_KINDS
+    decode = u64_ext_decoder(P, d, from_words=byte)
+    if byte:
+        _, _, dw, _ = BYTE_KINDS[kind]
+        plain = (blake3.blake3_hash_words_plain if kind.startswith("blake3")
+                 else sha3.sha3_hash_words_plain)
     elems, ctr, j = [], counter0, 0
     for _ in range(k):
         for _ in range(MAX_TRIES):
             ctr += 1
             if j < cands.shape[0]:
-                digest = cands[j, 4:8]
+                digest = cands[j] if byte else cands[j, 4:8]
+            elif byte:
+                digest = plain(_candidate_messages(seed, ctr - 1, 1),
+                               4 * dw + 8, dw)[0]
             else:
                 digest = permute_rows_plain(
                     _candidate_states(seed, ctr - 1, 1))[0, 4:8]
@@ -218,16 +301,52 @@ def draw_kernel(cands, seed, counter0: int, k: int, d: int):
     return elems, counter
 
 
-def make_draw(next_candidates, degree: int):
+def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int):
+    """The byte hasher's draw kernel on CUDA tensors: k draws of degree-d
+    elements from the candidate digests ``cands`` (t, dw) of counters
+    counter0 + 1 .., hashing further counters on the card if candidates are
+    rejected. Returns (elems (k, d), counter (1,)); the counter is 2^64 − 1
+    (−1 as int64) if a draw found nothing in 1000 candidates."""
+    _, _, dw, name = BYTE_KINDS[kind]
+    for t, what in ((cands, "cands"), (seed, "seed")):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"byte_draw_kernel: {what} must be contiguous "
+                             "int32 words")
+    if cands.dim() != 2 or cands.shape[1] != dw or seed.shape != (dw,):
+        raise ValueError(f"byte_draw_kernel: expected cands (t, {dw}) and "
+                         f"seed ({dw},)")
+    if not 1 <= d <= 4 or k < 1:
+        raise ValueError("byte_draw_kernel: needs k >= 1 and 1 <= d <= 4")
+    if seed.device.type != "cuda" or cands.device != seed.device:
+        raise ValueError("byte_draw_kernel: the kernel takes CUDA tensors")
+    dev = seed.device
+    elems = torch.empty((k, d), dtype=gl.I64, device=dev)
+    counter = torch.empty((1,), dtype=gl.I64, device=dev)
+    lib = blake3._kernels() if name == "blake3_coin_draw" else sha3._kernels()
+    entry = (lib.wt_blake3_coin_draw if name == "blake3_coin_draw"
+             else lib.wt_sha3_coin_draw)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = entry(cands.data_ptr(), seed.data_ptr(), elems.data_ptr(),
+                    counter.data_ptr(), counter0, cands.shape[0], k, d, dw,
+                    stream)
+    rescue._raise_on(err, name)
+    LAUNCHES[name] += 1
+    return elems, counter
+
+
+def make_draw(next_candidates, degree: int, kind: str = "rp64_256"):
     """``draw(seed, k=1, counter=0) -> (elems (k, degree), counter (1,))``:
     k consecutive draws with the host coin's counter semantics; the k
-    candidates are permuted in one launch, the rejection loop runs in the
-    draw kernel on the card (its plain version on the CPU)."""
+    candidates come from one launch, the rejection loop runs in the draw
+    kernel on the card (its plain version on the CPU)."""
 
     def draw(seed, k: int = 1, counter: int = 0):
         cands = next_candidates(seed, counter, k)
         if seed.device.type == "cpu":
-            return draw_plain(cands, seed, counter, k, degree)
+            return draw_plain(cands, seed, counter, k, degree, kind)
+        if kind in BYTE_KINDS:
+            return byte_draw_kernel(kind, cands, seed, counter, k, degree)
         return draw_kernel(cands, seed, counter, k, degree)
 
     return draw
@@ -253,10 +372,13 @@ def make_draw_k(draw):
 
 @lru_cache(maxsize=None)
 def coin_bundle(kind: str, degree: int, eng_name: str = "f64"):
-    """(merge, draw) for a prover configuration; only Rp64_256 over f64 has a
-    device coin in the port so far (the byte hashers and Rp62_248 come with
-    their slices)."""
-    if kind != "rp64_256" or eng_name != "f64":
+    """(merge, draw) for a prover configuration: Rp64_256 and the byte
+    hashers over f64 (Rp62_248 and the limb engines come with their
+    slices)."""
+    if eng_name != "f64" or (kind != "rp64_256" and kind not in BYTE_KINDS):
         raise ValueError(f"no device coin for {kind!r} over {eng_name!r}")
-    merge, next_candidates = rp64_coin_ops()
-    return merge, make_draw(next_candidates, degree)
+    if kind == "rp64_256":
+        merge, next_candidates = rp64_coin_ops()
+    else:
+        merge, next_candidates = byte_coin_ops(kind)
+    return merge, make_draw(next_candidates, degree, kind)

@@ -7,13 +7,17 @@ plain version. The parts:
 
 - ``mul_layout(a, b)``: checks the operands and returns the layout the
   kernel reads (broadcast shape, dims of size 1 dropped, neighbouring dims
-  merged where both operands allow it; the kernel's offsets are 32-bit, so
-  no operand may reach 2^31 elements). It runs on every device, so the CPU
-  tests hold every caller to what the kernel takes;
+  merged where both operands allow it, and whether it ``fits`` the kernel's
+  32-bit offsets: the product and each operand's extent at most
+  ``INDEX_LIMIT`` elements). It runs on every device, so the CPU tests hold
+  every caller to what the kernel takes;
 - ``gl_mul_kernel(a, b)``: launches the kernel on the current stream,
-  without synchronising, and adds one to ``LAUNCHES["gl_mul"]``. It reads
-  broadcast operands (stride 0) and strided views in place and takes a
-  Python int for ``b``; it raises for anything but CUDA tensors;
+  without synchronising, and adds one to ``LAUNCHES["gl_mul"]`` per launch.
+  It reads broadcast operands (stride 0) and strided views in place and
+  takes a Python int for ``b``; a product that does not fit is split along
+  its outermost dim into halves, each launched into its part of the result
+  (``mul_into``), as the JAX ``gl_mul`` computes any size; it raises for
+  anything but CUDA tensors;
 - ``gl_mul_plain(a, b)``: the same function in plain PyTorch (128-bit
   product from 32-bit halves, then the reduction), the CPU path and the
   version ``chip_smoke.py`` holds the kernel against.
@@ -52,6 +56,7 @@ class MulLayout(NamedTuple):
     sizes: Tuple[int, ...]    # coalesced dims, outermost first
     a_strides: Tuple[int, ...]
     b_strides: Tuple[int, ...]  # () when b is a Python int
+    fits: bool  # within the kernel's 32-bit offsets
 
 
 def gl_mul_plain(a, b):
@@ -99,16 +104,12 @@ def mul_layout(a, b) -> MulLayout:
     numel = 1
     for size in shape:
         numel *= size
-    reach = {"elements": numel,
-             "a's extent": 1 + sum((m[0] - 1) * m[1] for m in merged),
-             "b's extent": 1 + sum((m[0] - 1) * m[2] for m in merged)}
-    for what, r in reach.items():
-        if r > INDEX_LIMIT:
-            raise ValueError(f"gl_mul: {what} {r} above {INDEX_LIMIT}, the "
-                             "kernel's offsets are 32-bit")
+    reach = max(numel, 1 + sum((m[0] - 1) * m[1] for m in merged),
+                1 + sum((m[0] - 1) * m[2] for m in merged))
     return MulLayout(shape, numel, tuple(m[0] for m in merged),
                      tuple(m[1] for m in merged),
-                     () if scalar else tuple(m[2] for m in merged))
+                     () if scalar else tuple(m[2] for m in merged),
+                     reach <= INDEX_LIMIT)
 
 
 _lib = None
@@ -136,8 +137,37 @@ def gl_mul_kernel(a, b, layout: MulLayout = None):
         raise ValueError("gl_mul_kernel: the kernel takes CUDA tensors, got "
                          f"{a.device}")
     out = torch.empty(layout.shape, dtype=torch.int64, device=a.device)
+    mul_into(a, b, out, _launch, layout)
+    return out
+
+
+def mul_into(a, b, out, launch, layout: MulLayout = None) -> None:
+    """out <- a·b for a contiguous ``out`` of the broadcast shape:
+    ``launch(a, b, out, layout)`` where the layout fits the kernel's offsets,
+    else the two halves of the outermost dim of size > 1 in turn (every dim
+    before it has size 1, so each half of ``out`` is contiguous)."""
+    if layout is None:
+        layout = mul_layout(a, b)
     if layout.numel == 0:
-        return out
+        return
+    if layout.fits:
+        launch(a, b, out, layout)
+        return
+    shape = layout.shape
+    d = next(i for i, size in enumerate(shape) if size > 1)
+    half = shape[d] // 2
+    a = a.expand(shape)
+    if not isinstance(b, int):
+        b = b.expand(shape)
+    lead = (slice(None),) * d
+    for part in (slice(0, half), slice(half, shape[d])):
+        idx = lead + (part,)
+        mul_into(a[idx], b if isinstance(b, int) else b[idx], out[idx],
+                 launch)
+
+
+def _launch(a, b, out, layout: MulLayout) -> None:
+    """One K3 launch writing a·b into the contiguous ``out``."""
     nd = len(layout.sizes)
     arr = ctypes.c_int64 * nd
     scalar = isinstance(b, int)
@@ -152,4 +182,3 @@ def gl_mul_kernel(a, b, layout: MulLayout = None):
     if err != 0:
         raise RuntimeError(f"gl_mul: CUDA launch failed with error {err}")
     LAUNCHES["gl_mul"] += 1
-    return out

@@ -311,20 +311,34 @@ def rp64_merkle_levels(leaves):
         raise ValueError("rp64_merkle_levels: leaves must be contiguous")
     if _device_kind(leaves) == "cpu":
         return rp64_merkle_levels_plain(leaves)
-    buf = torch.empty((n - 1, 4), dtype=torch.int64, device=leaves.device)
-    log_n = n.bit_length() - 1
-    base, row = buf.data_ptr(), 4 * buf.element_size()
     lib = _kernels()
+    ark = _table("ark", leaves.device).data_ptr()
+
+    def launch(src, dst, lg, b, stream):
+        _raise_on(lib.wt_rp64_merkle_levels(src, dst, ark, lg, b, stream),
+                  "rp64_merkle_levels")
+        LAUNCHES["rp64_merkle_tree"] += 1
+
+    return levels_by_plan(leaves, launch)
+
+
+def levels_by_plan(leaves, launch):
+    """The internal Merkle levels over (n, w) leaf digests (n a power of two,
+    contiguous, on the card), largest first, root last: consecutive views of
+    one (n - 1, w) buffer, built by ``launch(src, dst, lg, b, stream)`` once
+    per entry of _tree_plan: merge the level of 2^lg nodes at pointer src
+    into b levels written from pointer dst on. The offsets come from the
+    shapes alone, so no launch waits on the host."""
+    n, w = leaves.shape
+    buf = torch.empty((n - 1, w), dtype=leaves.dtype, device=leaves.device)
+    log_n = n.bit_length() - 1
+    base, row = buf.data_ptr(), w * buf.element_size()
     with torch.cuda.device(leaves.device):
         stream = torch.cuda.current_stream().cuda_stream
-        ark = _table("ark", leaves.device).data_ptr()
         for lg, b in _tree_plan(log_n):
             # the level of size s sits at rows [n - 2s, n - s) of buf
             src = (leaves.data_ptr() if lg == log_n else
                    base + row * (n - (2 << lg)))
-            err = lib.wt_rp64_merkle_levels(src, base + row * (n - (1 << lg)),
-                                            ark, lg, b, stream)
-            _raise_on(err, "rp64_merkle_levels")
-            LAUNCHES["rp64_merkle_tree"] += 1
+            launch(src, base + row * (n - (1 << lg)), lg, b, stream)
     sizes = [n >> i for i in range(1, log_n + 1)]
     return [buf[n - 2 * s : n - s] for s in sizes]

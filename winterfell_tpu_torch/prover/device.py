@@ -1,11 +1,16 @@
-"""GoldilocksProver — the tensor prove() pipeline for f64 AIRs with Rp64_256.
+"""GoldilocksProver — the tensor prove() pipeline for f64 AIRs, with the
+hashers the JAX package's GoldilocksProver takes: Rp64_256, RpJive64_256,
+Blake3_256, Blake3_192 and Sha3_256.
 
 Same 8-step protocol as the host :class:`winterfell_tpu_torch.prover.Prover`
 (prover/src/lib.rs:282-492), with every domain-sized step on a torch device
 through ``ops/goldilocks.py``:
 
 - trace and composition interpolation + coset LDE: tensor NTT;
-- row hashing and Merkle levels: the Rescue kernels of ``ops/rescue.py``;
+- row hashing and Merkle levels: the hasher's kernels (``ops/rescue.py``,
+  ``ops/jive.py``, ``ops/blake3.py``, ``ops/sha3.py``); Rescue digests are
+  (m, 4) int64 field elements, BLAKE3 and SHA3 digests (m, 8) or (m, 6)
+  int32 words (their ``<u4`` bytes are the digest bytes);
 - constraint evaluation: the AIR's own ``evaluate_transition`` run with
   :class:`TorchOps` over the whole CE domain; sequence assertions evaluate
   their value polynomials with one batched NTT
@@ -24,13 +29,14 @@ Three routes, dispatched as winterfell_tpu/prover/device.py dispatches them
   Fiat–Shamir coin there too (``ops/device_coin.py``); between the trace
   upload and the result pulls nothing is read back to the host. Taken for a
   single-segment trace with at least one FRI layer, a remainder of at least
-  2 and an LDE of at most ``_RESIDENT_LIMIT_F64`` rows, unless
-  ``WINTER_RESIDENT=0``;
+  2 and an LDE of at most ``_RESIDENT_LIMIT_F64`` rows, and a hasher with a
+  device coin (every one but RpJive64_256) whose OOD reseed fits one BLAKE3
+  chunk (1024 bytes) for the byte hashers, unless ``WINTER_RESIDENT=0``;
 - **phased + fused FRI**: the host coin between phases, then the whole FRI
   commit phase with the coin on the device (``WINTER_RESIDENT=0``, or an
-  LDE above the resident limit);
+  LDE above the resident limit; a hasher with a device coin);
 - **phased + host coin**: one host round trip per FRI layer
-  (``WINTER_FUSED_FRI=0`` as well, or no FRI layer).
+  (``WINTER_FUSED_FRI=0`` as well, no FRI layer, or RpJive64_256).
 
 Grinding, query positions and the batched query gathers stay on the host
 in every route. Entry points run on the card unless the caller passes
@@ -48,13 +54,22 @@ import torch
 from ..air.air import EvaluationFrame
 from ..air.divisor import ConstraintDivisor
 from ..air.proof import FriProof, FriProofLayer, OodFrame, Proof, Queries
-from ..crypto.hashers import Rp64_256
+from ..crypto.hashers import (
+    Blake3_192,
+    Blake3_256,
+    Rp64_256,
+    RpJive64_256,
+    Sha3_256,
+)
 from ..crypto.merkle import MerkleTree
 from ..fri import FriOptions, fold_positions
 from ..math import ntt as host_ntt
 from ..math.fields import F64, Field
+from ..ops import blake3 as b3
 from ..ops import device_coin as dc
 from ..ops import goldilocks as gl
+from ..ops import jive
+from ..ops import sha3 as s3
 from ..ops.torch_ops import TorchOps
 from ..utils import tracing
 from . import Prover
@@ -71,6 +86,31 @@ _FRI_FUSE_LIMIT_F64 = 1 << 22
 _RESIDENT_LIMIT_F64 = 1 << 22
 # BatchingMethod -> device draw mode (air/src/options.rs:479-505)
 _BATCH_NAMES_F64 = {0: "linear", 1: "algebraic", 2: "horner"}
+# the hashers with a device coin (winterfell_tpu/prover/device.py:974-997):
+# every f64 hasher but RpJive64_256
+_FRI_COIN_KINDS_F64 = {Rp64_256: "rp64_256", Blake3_256: "blake3_256",
+                       Blake3_192: "blake3_192", Sha3_256: "sha3_256"}
+# the byte hashers' OOD reseed hashes one row on the device; the resident
+# route takes it only within one BLAKE3 chunk (device.py:1111-1118)
+_OOD_BYTES_LIMIT = 1024
+
+
+def _f64_hasher_entry(hasher):
+    """(kind, row-hash fn, Merkle-levels fn, digest words) of each device
+    hasher of the f64 prover (winterfell_tpu/prover/device.py:690-710): kind
+    "field" hashes element rows in the field, with (m, 4) int64 digests;
+    kind "bytes" hashes the canonical little-endian element bytes as u32
+    words, with (m, digest words) int32 digests."""
+    return {
+        Rp64_256: ("field", gl.rp64_hash_rows, gl.merkle_levels_rp64, 4),
+        RpJive64_256: ("field", jive.jive_hash_rows, jive.jive_merkle_levels,
+                       4),
+        Blake3_256: ("bytes", b3.blake3_hash_words, b3.blake3_merkle_levels,
+                     8),
+        Blake3_192: ("bytes", b3.blake3_hash_words, b3.blake3_merkle_levels,
+                     6),
+        Sha3_256: ("bytes", s3.sha3_hash_words, s3.sha3_merkle_levels, 8),
+    }[hasher]
 
 
 def resolve_device(device) -> torch.device:
@@ -92,6 +132,13 @@ def _u64_rows(t: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(t.view(np.uint64).astype("<u8"))
 
 
+def _as_i64(t: torch.Tensor) -> torch.Tensor:
+    """A digest tensor as int64 lanes with the same bytes: int32 word
+    digests (an even number of words) as their little-endian word pairs, so
+    that one host copy and ``<u8`` bytes serve every hasher's digests."""
+    return t if t.dtype == torch.int64 else t.contiguous().view(torch.int64)
+
+
 class _GatherBatch:
     """Row gathers of the query phase: every (tensor, indexes) pair is taken
     with ``index_select`` and all results cross to the host in ONE copy."""
@@ -110,7 +157,7 @@ class _GatherBatch:
             parts, shapes = [], []
             for t, idx in self._items:
                 ix = torch.tensor(idx, dtype=torch.int64).to(t.device)
-                rows = t.index_select(0, ix)
+                rows = _as_i64(t.index_select(0, ix))
                 shapes.append(tuple(rows.shape))
                 parts.append(rows.reshape(-1))
             flat = gl.to_u64(torch.cat(parts)) if parts else np.zeros(0, np.uint64)
@@ -151,8 +198,10 @@ class _DictView:
 
 class PrehashedMerkleTree(MerkleTree):
     """MerkleTree over digests hashed on the device; reuses the host proof
-    logic. ``leaves`` is an (m, 4) tensor, ``levels`` the internal levels
-    (level of size s holds heap nodes [s, 2s)).
+    logic. ``leaves`` is an (m, 4) int64 tensor of Rescue digest elements or
+    an (m, 8) / (m, 6) int32 tensor of byte-hasher digest words (gathered
+    as int64 lanes of the same bytes, ``_as_i64``), ``levels`` the internal
+    levels (level of size s holds heap nodes [s, 2s)).
 
     ``prove_batch`` runs twice over the host Octopus algorithm: a recording
     pass learns which leaf and node digests it touches (the pattern depends
@@ -166,7 +215,7 @@ class PrehashedMerkleTree(MerkleTree):
         self.hasher = hasher
         self._n = leaves.shape[0]
         if root is None:  # pull it now (callers that batch pulls pass it)
-            root = _u64_rows(gl.to_u64(self.levels[1]))[0].tobytes()
+            root = _u64_rows(gl.to_u64(_as_i64(self.levels[1])))[0].tobytes()
         self._root = root
         self.leaves = _RecordingView(self._n)
         self.nodes = _RecordingView(self._n)
@@ -258,28 +307,49 @@ def _boundary_divisor_inv(xs, a: int, b0: int):
     return gl.gl_batch_inv(gl.gl_sub(gl.gl_pow_const(xs, a), gl.const(b0)))
 
 
-def _hash_rows_part(rows_2d, psize: int):
+def _hash_rows_bytes(rows_2d, psize: int, hash_fn, dw: int):
+    """Byte-hasher (BLAKE3, SHA3) row hashing of (m, k) element rows with
+    PartitionOptions column chunking: each chunk's little-endian bytes are
+    hashed, the chunk digests combined with merge_many = the hash of their
+    concatenated bytes (winterfell_tpu/prover/device.py:671-687)."""
+    words, byte_len = b3.rows_from_u64(rows_2d.contiguous())
+    k = rows_2d.shape[1]
+    if psize >= k:
+        return hash_fn(words, byte_len, dw)
+    digests = []
+    for i in range(0, 2 * k, 2 * psize):
+        chunk = words[:, i : i + 2 * psize]
+        digests.append(hash_fn(chunk, 4 * chunk.shape[1], dw))
+    joined = torch.cat(digests, dim=1)
+    return hash_fn(joined, 4 * joined.shape[1], dw)
+
+
+def _hash_rows_part(rows_2d, psize: int, hasher):
     """Row hashing with PartitionOptions column chunking: each chunk of psize
     base columns is hashed separately and the chunk digests combined with
     merge_many (row_matrix.rs:184-229)."""
+    kind, hash_fn, _, dw = _f64_hasher_entry(hasher)
+    if kind == "bytes":
+        return _hash_rows_bytes(rows_2d, psize, hash_fn, dw)
     k = rows_2d.shape[1]
     if psize >= k:
-        return gl.rp64_hash_rows(rows_2d)
-    digests = [gl.rp64_hash_rows(rows_2d[:, i : i + psize])
+        return hash_fn(rows_2d)
+    digests = [hash_fn(rows_2d[:, i : i + psize].contiguous())
                for i in range(0, k, psize)]
-    return gl.rp64_hash_rows(torch.cat(digests, dim=1))
+    return hash_fn(torch.cat(digests, dim=1))
 
 
-def _commit_pipeline(matrix, n: int, offset: int, blowup: int, psize: int):
+def _commit_pipeline(matrix, n: int, offset: int, blowup: int, psize: int,
+                     hasher):
     """Interpolate → coset LDE → row hash → Merkle levels."""
     polys = gl.ntt_interpolate(matrix, n)
     lde = gl.ntt_evaluate_with_offset(polys, n, offset, blowup)
-    leaves = _hash_rows_part(lde.reshape(lde.shape[0], -1), psize)
-    return polys, lde, leaves, gl.merkle_levels_rp64(leaves)
+    leaves = _hash_rows_part(lde.reshape(lde.shape[0], -1), psize, hasher)
+    return polys, lde, leaves, _f64_hasher_entry(hasher)[2](leaves)
 
 
 def _comp_commit_pipeline(ce_column, ce: int, n: int, offset: int,
-                          blowup: int, num_cols: int, psize: int):
+                          blowup: int, num_cols: int, psize: int, hasher):
     """Composition commitment: iNTT the CE column over its coset, split the
     first num_cols trace-length coefficient chunks into columns
     (composition_poly.rs:55-85), then LDE, hash and Merkle levels."""
@@ -288,21 +358,22 @@ def _comp_commit_pipeline(ce_column, ce: int, n: int, offset: int,
     comp_columns = coeffs[: num_cols * n].reshape(num_cols, n, d).transpose(
         0, 1).contiguous()
     lde = gl.ntt_evaluate_with_offset(comp_columns, n, offset, blowup)
-    leaves = _hash_rows_part(lde.reshape(lde.shape[0], -1), psize)
-    return comp_columns, lde, leaves, gl.merkle_levels_rp64(leaves)
+    leaves = _hash_rows_part(lde.reshape(lde.shape[0], -1), psize, hasher)
+    return comp_columns, lde, leaves, _f64_hasher_entry(hasher)[2](leaves)
 
 
-def _fri_layer_commit(evaluations, n_fold: int):
+def _fri_layer_commit(evaluations, n_fold: int, hasher):
     """Transpose a FRI layer into N-value rows, hash, Merkle levels
     (fri/src/prover/mod.rs:202-222)."""
     n, d = evaluations.shape
     rows = n // n_fold
     transposed = evaluations.reshape(n_fold, rows, d).transpose(0, 1).contiguous()
-    leaves = gl.rp64_hash_rows(transposed.reshape(rows, n_fold * d))
-    return transposed, leaves, gl.merkle_levels_rp64(leaves)
+    leaves = _hash_rows_part(transposed.reshape(rows, n_fold * d),
+                             n_fold * d, hasher)
+    return transposed, leaves, _f64_hasher_entry(hasher)[2](leaves)
 
 
-def _fri_phase_body(deep_evals, seed, merge, draw, n_fold: int,
+def _fri_phase_body(deep_evals, seed, merge, draw, hasher, n_fold: int,
                     n_layers: int, offset: int):
     """The FRI commit phase with the coin on the device
     (winterfell_tpu/prover/device.py:_fri_phase_body_f64): per layer
@@ -312,7 +383,8 @@ def _fri_phase_body(deep_evals, seed, merge, draw, n_fold: int,
     evaluations = deep_evals
     outs = []
     for _ in range(n_layers):
-        transposed, leaves, levels = _fri_layer_commit(evaluations, n_fold)
+        transposed, leaves, levels = _fri_layer_commit(evaluations, n_fold,
+                                                       hasher)
         seed = merge(seed, levels[-1])
         alpha, _ = draw(seed)
         evaluations = gl.fri_fold(evaluations, n_fold, offset, alpha[0])
@@ -324,7 +396,8 @@ def _fri_phase_body(deep_evals, seed, merge, draw, n_fold: int,
 
 def _pull_small(tensors) -> List[np.ndarray]:
     """Every small device result in ONE device-to-host copy, as numpy uint64
-    arrays of the tensors' shapes."""
+    arrays (int32 word tensors as their little-endian word pairs)."""
+    tensors = [_as_i64(t) for t in tensors]
     flat = gl.to_u64(torch.cat([t.reshape(-1) for t in tensors]))
     out, pos = [], 0
     for t in tensors:
@@ -357,9 +430,10 @@ def _deep_combine(comp_z, comp_gz, z_arr, zg_arr, xs):
 
 
 class GoldilocksProver(Prover):
-    """Drop-in Prover for f64 AIRs with Rp64_256 commitments. Subclass or wrap
-    an existing prover class via ``accelerate``; pass ``device=`` (default
-    "cuda") to choose where the pipeline runs."""
+    """Drop-in Prover for f64 AIRs with Rp64_256, RpJive64_256, BLAKE3 or
+    SHA3 commitments. Subclass or wrap an existing prover class via
+    ``accelerate``; pass ``device=`` (default "cuda") to choose where the
+    pipeline runs."""
 
     def __init__(self, *args, device="cuda", **kwargs):
         super().__init__(*args, **kwargs)
@@ -386,7 +460,12 @@ class GoldilocksProver(Prover):
         pub_inputs = self.get_pub_inputs(trace)
         air = self.air_class(trace.info(), pub_inputs, self.options)
         assert air.base is F64, "GoldilocksProver requires the f64 base field"
-        assert self.hasher is Rp64_256, "GoldilocksProver requires Rp64_256"
+        try:
+            kind = _f64_hasher_entry(self.hasher)[0]
+        except KeyError:
+            raise AssertionError(
+                "GoldilocksProver requires a Rp64_256, RpJive64_256, BLAKE3 "
+                "or SHA3 hasher (device row hashing)") from None
         assert not air.trace_info.is_multi_segment, (
             "GoldilocksProver proves single-segment traces")
         channel = ProverChannel(air, air.pub_inputs_to_elements(), self.hasher)
@@ -398,11 +477,16 @@ class GoldilocksProver(Prover):
         n_layers = fri_opts.num_fri_layers(lde_size)
         rem_n = lde_size // fri_opts.folding_factor**n_layers
         # the JAX package's dispatch (winterfell_tpu/prover/device.py:
-        # 1119-1130) for Rp64_256, one segment and no mesh
-        if (_RESIDENT_ON_F64 and n_layers > 0 and rem_n >= 2
-                and lde_size <= _RESIDENT_LIMIT_F64):
+        # 1105-1118) for one segment and no mesh
+        coin_kind = _FRI_COIN_KINDS_F64.get(self.hasher)
+        ood_bytes = (2 * (air.trace_info.width
+                          + air.context.num_constraint_composition_columns())
+                     * air.ext_field.degree * 8)
+        if (_RESIDENT_ON_F64 and coin_kind is not None and n_layers > 0
+                and rem_n >= 2 and lde_size <= _RESIDENT_LIMIT_F64
+                and (kind == "field" or ood_bytes <= _OOD_BYTES_LIMIT)):
             return self._prove_resident(air, trace, channel, phases, fri_opts,
-                                        n_layers, rem_n)
+                                        n_layers, rem_n, coin_kind)
         return self._prove_phased(air, trace, channel, phases, fri_opts,
                                   n_layers, rem_n)
 
@@ -425,7 +509,8 @@ class GoldilocksProver(Prover):
         phases.mark("commit_main_upload")
         w = main_dev.shape[1]
         main_polys, main_lde, leaves, levels = _commit_pipeline(
-            main_dev, n, offset, blowup, part.partition_size(w, 1))
+            main_dev, n, offset, blowup, part.partition_size(w, 1),
+            self.hasher)
         main_tree = PrehashedMerkleTree(leaves, levels, self.hasher)
         channel.commit_trace(main_tree.root)
         phases.mark("commit_to_main_trace_segment", lde_domain_size=lde_size)
@@ -443,7 +528,7 @@ class GoldilocksProver(Prover):
         num_cols = air.context.num_constraint_composition_columns()
         comp_columns, comp_lde, leaves, levels = _comp_commit_pipeline(
             ce_column, ce, n, offset, blowup, num_cols,
-            part.partition_size(num_cols, d) * d)
+            part.partition_size(num_cols, d) * d, self.hasher)
         del ce_column
         comp_tree = PrehashedMerkleTree(leaves, levels, self.hasher)
         channel.commit_constraints(comp_tree.root)
@@ -468,14 +553,16 @@ class GoldilocksProver(Prover):
         # 6 ----- FRI layers -------------------------------------------------
         n_fold = fri_opts.folding_factor
         fri_layers = []  # (tree, transposed (rows, N, d))
-        if (_FUSED_FRI_ON and n_layers > 0 and rem_n >= 2
-                and lde_size <= _FRI_FUSE_LIMIT_F64):
+        coin_kind = _FRI_COIN_KINDS_F64.get(self.hasher)
+        if (_FUSED_FRI_ON and coin_kind is not None and n_layers > 0
+                and rem_n >= 2 and lde_size <= _FRI_FUSE_LIMIT_F64):
             # the whole commit phase with the coin on the device; the roots
             # and the seed cross to the host in one copy at its end
-            merge, draw = dc.coin_bundle("rp64_256", d, "f64")
+            merge, draw = dc.coin_bundle(coin_kind, d, "f64")
             outs, rem_coeffs, seed = _fri_phase_body(
-                deep_evaluations, dc.seed_tensor(channel.public_coin.seed, dev),
-                merge, draw, n_fold, n_layers, offset)
+                deep_evaluations,
+                dc.seed_tensor(channel.public_coin.seed, dev, coin_kind),
+                merge, draw, self.hasher, n_fold, n_layers, offset)
             pulled = _pull_small([lv[-1] for _, _, lv in outs] + [seed])
             for (transposed, leaves, levels), root in zip(outs, pulled):
                 tree = PrehashedMerkleTree(leaves, levels, self.hasher,
@@ -488,8 +575,8 @@ class GoldilocksProver(Prover):
         else:
             evaluations = deep_evaluations
             for _ in range(n_layers):
-                transposed, leaves, levels = _fri_layer_commit(evaluations,
-                                                               n_fold)
+                transposed, leaves, levels = _fri_layer_commit(
+                    evaluations, n_fold, self.hasher)
                 tree = PrehashedMerkleTree(leaves, levels, self.hasher)
                 channel.commit_fri_layer(tree.root)
                 alpha = _ext_tensor([channel.draw_fri_alpha()], dev)[0]
@@ -506,7 +593,7 @@ class GoldilocksProver(Prover):
     # ------------------------------------------------------------------
 
     def _prove_resident(self, air, trace, channel, phases, fri_opts,
-                        n_layers: int, rem_n: int) -> Proof:
+                        n_layers: int, rem_n: int, coin_kind: str) -> Proof:
         """Steps 1-6 (trace commit, coefficient draws, constraint
         evaluation, composition commit, OOD, DEEP, every FRI layer) on the
         device with the Fiat–Shamir coin there too. The host uploads the
@@ -522,11 +609,11 @@ class GoldilocksProver(Prover):
         boundary = air.get_boundary_constraints(
             None, list(range(air.context.num_assertions)))
         seq = self._resident_consts(air, boundary, fri_opts, n_layers)
-        seed0 = dc.seed_tensor(channel.public_coin.seed, dev)
+        seed0 = dc.seed_tensor(channel.public_coin.seed, dev, coin_kind)
         (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
          main_pair, comp_pair, fri_outs, rem_coeffs, seed) = \
             self._resident_run(air, boundary, seq, main_dev, seed0,
-                               fri_opts.folding_factor, n_layers)
+                               fri_opts.folding_factor, n_layers, coin_kind)
 
         pulled = _pull_small([m_levels[-1], c_levels[-1]]
                              + [lv[-1] for _, _, lv in fri_outs]
@@ -587,7 +674,7 @@ class GoldilocksProver(Prover):
         return self._seq_coeffs(air, boundary)
 
     def _resident_run(self, air, boundary, seq, main_dev, seed0, n_fold: int,
-                      n_layers: int):
+                      n_layers: int, coin_kind: str):
         """The device part of the resident route: only launches, no host
         read (winterfell_tpu/prover/device.py:1522-1585)."""
         d = air.ext_field.degree
@@ -600,14 +687,16 @@ class GoldilocksProver(Prover):
         num_cols = air.context.num_constraint_composition_columns()
         n_t = air.context.num_transition_constraints
         n_b = air.context.num_assertions
-        merge, draw = dc.coin_bundle("rp64_256", d, "f64")
+        hasher = self.hasher
+        kind, row_hash, _, dw = _f64_hasher_entry(hasher)
+        merge, draw = dc.coin_bundle(coin_kind, d, "f64")
         draw_k = dc.make_draw_k(draw)
         method_c = _BATCH_NAMES_F64[int(air.options.batching_constraints)]
         method_d = _BATCH_NAMES_F64[int(air.options.batching_deep)]
 
         # 1 -- trace commit
         main_polys, main_lde, m_leaves, m_levels = _commit_pipeline(
-            main_dev, n, offset, blowup, part.partition_size(w, 1))
+            main_dev, n, offset, blowup, part.partition_size(w, 1), hasher)
         seed = merge(seed0, m_levels[-1])
         # 2 -- constraint composition coefficients, constraint evaluation
         ccs_all, _ = draw_k(seed, n_t + n_b, method_c)
@@ -616,7 +705,7 @@ class GoldilocksProver(Prover):
         # 3 -- composition commitment
         comp_columns, comp_lde, c_leaves, c_levels = _comp_commit_pipeline(
             ce_column, ce, n, offset, blowup, num_cols,
-            part.partition_size(num_cols, d) * d)
+            part.partition_size(num_cols, d) * d, hasher)
         del ce_column
         seed = merge(seed, c_levels[-1])
         # 4 -- OOD point, evaluations, reseed with their hash
@@ -626,14 +715,19 @@ class GoldilocksProver(Prover):
         main_pair, comp_pair = _ood_pairs(main_polys, comp_columns, z, g_trace)
         merged = torch.cat([main_pair[:, 0], comp_pair[:, 0],
                             main_pair[:, 1], comp_pair[:, 1]])
-        seed = merge(seed, gl.rp64_hash_rows(merged.reshape(1, -1))[0])
+        flat = merged.reshape(1, -1)
+        if kind == "field":
+            ood_digest = row_hash(flat)[0]
+        else:  # the one-row hash of the elements' bytes (device.py:1515-1520)
+            ood_digest = row_hash(*b3.rows_from_u64(flat), dw)[0]
+        seed = merge(seed, ood_digest)
         # 5 -- DEEP composition, 6 -- FRI layers
         deep_all, _ = draw_k(seed, w + num_cols, method_d)
         deep_evals = self._deep_evaluations(air, main_lde, comp_lde, z,
                                             g_trace, main_pair, comp_pair,
                                             deep_all)
         fri_outs, rem_coeffs, seed = _fri_phase_body(
-            deep_evals, seed, merge, draw, n_fold, n_layers, offset)
+            deep_evals, seed, merge, draw, hasher, n_fold, n_layers, offset)
         return (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
                 main_pair, comp_pair, fri_outs, rem_coeffs, seed)
 
