@@ -564,8 +564,8 @@ def main() -> int:
     # the byte coins' draw kernels, with rejected candidates planted: the
     # kernel then hashes further counters itself
     for coin in ("blake3_256", "blake3_192", "sha3_256"):
-        dw = device_coin.BYTE_KINDS[coin][2]
-        name = device_coin.BYTE_KINDS[coin][3]
+        dw = device_coin.BYTE_KINDS[coin].digest_words
+        name = device_coin.BYTE_KINDS[coin].draw
         _, next_byte = device_coin.byte_coin_ops(coin)
         for k, d, reject in ((1, 3, ()), (5, 3, ()), (7, 1, ()),
                              (3, 2, (1,)), (2, 3, (0, 1))):
@@ -850,7 +850,7 @@ def main() -> int:
                      _bound_jive(n - 1, (2 * n - 1) * 32))
 
     def byte_draw_entry(coin, k, d):
-        dw = device_coin.BYTE_KINDS[coin][2]
+        dw = device_coin.BYTE_KINDS[coin].digest_words
         seed_w = _words(rng, (dw,), dev)
         cands = device_coin.byte_coin_ops(coin)[1](seed_w, 0, k)
         # every candidate of these inputs is accepted (checked against the

@@ -233,7 +233,7 @@ def test_byte_hasher_and_jive_kernels_equal_plain(cuda, monkeypatch):
                 for a, b in zip(got, want):
                     assert torch.equal(a, b), (w, n, a.shape[0])
     for kind in ("blake3_256", "blake3_192", "sha3_256"):
-        dw = device_coin.BYTE_KINDS[kind][2]
+        dw = device_coin.BYTE_KINDS[kind].digest_words
         _, next_candidates = device_coin.byte_coin_ops(kind)
         for k, d, reject in ((1, 3, ()), (6, 3, ()), (4, 1, (2,)),
                              (2, 2, (0, 1))):

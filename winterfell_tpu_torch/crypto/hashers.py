@@ -27,9 +27,14 @@ from .blake3_host import blake3 as _blake3_py
 from .rescue_constants import RP64_256_ARK1, RP64_256_ARK2, RP64_256_MDS
 from .rescue_jive_constants import JIVE_ARK1, JIVE_ARK2, JIVE_MDS
 
-# the native C BLAKE3 where the C compiler built it, else the pure-Python
-# oracle (tests/test_torch_hashers.py pins the two together)
-blake3 = native.blake3 if native.available() else _blake3_py
+
+
+def blake3(data: bytes) -> bytes:
+    """BLAKE3 of ``data``: the native C library where the C compiler built it
+    (at the first call, not at import), else the pure-Python oracle
+    (tests/test_torch_hashers.py pins the two together)."""
+    return native.blake3(data) if native.available() else _blake3_py(data)
+
 
 # ================================================================================
 # Byte-digest hashers (BLAKE3, SHA3)

@@ -34,7 +34,7 @@ tensor coming out.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict
+from typing import Callable, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -50,14 +50,28 @@ MAX_TRIES = 1000  # a draw gives up after this many candidates, as the host coin
 LAUNCHES: Dict[str, int] = {"rp64_permute_rows": 0, "rp64_coin_draw": 0,
                             "blake3_coin_draw": 0, "sha3_coin_draw": 0}
 
-# byte-hasher coin kind -> (row hash, merge, digest words, draw kernel name)
+
+
+class ByteKind(NamedTuple):
+    """A byte-hasher coin: its row hash (and plain version), merge, digest
+    words, and its draw kernel's name (count key and entry point
+    ``wt_<draw>`` of the library ``kernels()`` loads)."""
+    hash_words: Callable
+    hash_words_plain: Callable
+    merge_rows: Callable
+    digest_words: int
+    draw: str
+    kernels: Callable
+
+
+_BLAKE3 = (blake3.blake3_hash_words, blake3.blake3_hash_words_plain,
+           blake3.blake3_merge_rows)
 BYTE_KINDS = {
-    "blake3_256": (blake3.blake3_hash_words, blake3.blake3_merge_rows, 8,
-                   "blake3_coin_draw"),
-    "blake3_192": (blake3.blake3_hash_words, blake3.blake3_merge_rows, 6,
-                   "blake3_coin_draw"),
-    "sha3_256": (sha3.sha3_hash_words, sha3.sha3_merge_rows, 8,
-                 "sha3_coin_draw"),
+    "blake3_256": ByteKind(*_BLAKE3, 8, "blake3_coin_draw", blake3._kernels),
+    "blake3_192": ByteKind(*_BLAKE3, 6, "blake3_coin_draw", blake3._kernels),
+    "sha3_256": ByteKind(sha3.sha3_hash_words, sha3.sha3_hash_words_plain,
+                         sha3.sha3_merge_rows, 8, "sha3_coin_draw",
+                         sha3._kernels),
 }
 
 
@@ -194,14 +208,16 @@ def byte_coin_ops(kind: str):
     - ``next_candidates(seed, counter0, t)``: the (t, dw) candidate digests
       hash(seed ‖ LE64(c)) for c = counter0 + 1 .. counter0 + t, one
       row-hash launch."""
-    hash_words, merge_rows, dw, _ = BYTE_KINDS[kind]
+    bk = BYTE_KINDS[kind]
+    dw = bk.digest_words
 
     def merge(seed, other):
-        return merge_rows(seed.reshape(1, dw), other.reshape(1, dw)).reshape(dw)
+        return bk.merge_rows(seed.reshape(1, dw),
+                             other.reshape(1, dw)).reshape(dw)
 
     def next_candidates(seed, counter0: int, t: int):
-        return hash_words(_candidate_messages(seed, counter0, t), 4 * dw + 8,
-                          dw)
+        return bk.hash_words(_candidate_messages(seed, counter0, t),
+                             4 * dw + 8, dw)
 
     return merge, next_candidates
 
@@ -240,12 +256,9 @@ def draw_plain(cands, seed, counter0: int, k: int, d: int,
     to test each candidate): (elems (k, d), counter (1,)). ``cands`` are the
     permuted candidate states (t, 12) for Rp64_256, the candidate digests
     (t, dw) for a byte hasher."""
-    byte = kind in BYTE_KINDS
+    bk = BYTE_KINDS.get(kind)
+    byte = bk is not None
     decode = u64_ext_decoder(P, d, from_words=byte)
-    if byte:
-        _, _, dw, _ = BYTE_KINDS[kind]
-        plain = (blake3.blake3_hash_words_plain if kind.startswith("blake3")
-                 else sha3.sha3_hash_words_plain)
     elems, ctr, j = [], counter0, 0
     for _ in range(k):
         for _ in range(MAX_TRIES):
@@ -253,8 +266,9 @@ def draw_plain(cands, seed, counter0: int, k: int, d: int,
             if j < cands.shape[0]:
                 digest = cands[j] if byte else cands[j, 4:8]
             elif byte:
-                digest = plain(_candidate_messages(seed, ctr - 1, 1),
-                               4 * dw + 8, dw)[0]
+                dw = bk.digest_words
+                digest = bk.hash_words_plain(
+                    _candidate_messages(seed, ctr - 1, 1), 4 * dw + 8, dw)[0]
             else:
                 digest = permute_rows_plain(
                     _candidate_states(seed, ctr - 1, 1))[0, 4:8]
@@ -307,7 +321,8 @@ def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int):
     counter0 + 1 .., hashing further counters on the card if candidates are
     rejected. Returns (elems (k, d), counter (1,)); the counter is 2^64 − 1
     (−1 as int64) if a draw found nothing in 1000 candidates."""
-    _, _, dw, name = BYTE_KINDS[kind]
+    bk = BYTE_KINDS[kind]
+    dw = bk.digest_words
     for t, what in ((cands, "cands"), (seed, "seed")):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"byte_draw_kernel: {what} must be contiguous "
@@ -322,16 +337,14 @@ def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int):
     dev = seed.device
     elems = torch.empty((k, d), dtype=gl.I64, device=dev)
     counter = torch.empty((1,), dtype=gl.I64, device=dev)
-    lib = blake3._kernels() if name == "blake3_coin_draw" else sha3._kernels()
-    entry = (lib.wt_blake3_coin_draw if name == "blake3_coin_draw"
-             else lib.wt_sha3_coin_draw)
+    entry = getattr(bk.kernels(), f"wt_{bk.draw}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = entry(cands.data_ptr(), seed.data_ptr(), elems.data_ptr(),
                     counter.data_ptr(), counter0, cands.shape[0], k, d, dw,
                     stream)
-    rescue._raise_on(err, name)
-    LAUNCHES[name] += 1
+    rescue._raise_on(err, bk.draw)
+    LAUNCHES[bk.draw] += 1
     return elems, counter
 
 
