@@ -345,6 +345,8 @@ def main() -> int:
     from winterfell_tpu_torch.ops import _build, device_coin, field_kernels
     from winterfell_tpu_torch.ops import goldilocks as gl
     from winterfell_tpu_torch.ops import blake3, jive, rescue, sha3
+    from winterfell_tpu_torch.ops.device_hashers import DEVICE_HASHERS
+    from winterfell_tpu_torch.ops.words import rows_from_u64 as words_of
     from winterfell_tpu_torch.prover import device as prover_device
     from winterfell_tpu_torch.prover.device import GoldilocksProver
     from winterfell_tpu_torch.utils import tracing
@@ -518,7 +520,7 @@ def main() -> int:
         for m in (1, 1000):
             for make in both:
                 rows = make(rng, (m, k), dev)
-                words, blen = blake3.rows_from_u64(rows)
+                words, blen = words_of(rows)
                 for dw in (8, 6):
                     check("blake3_hash_rows",
                           blake3.blake3_hash_words(words, blen, dw),
@@ -530,7 +532,7 @@ def main() -> int:
                       jive.jive_hash_rows_plain(rows), (m, k))
     for m, k in ((big, 2), (big, 3 * comp_cols), (big // 8, 24)):
         rows = _rng_field(rng, (m, k), dev)
-        words, blen = blake3.rows_from_u64(rows)
+        words, blen = words_of(rows)
         check("blake3_hash_rows", blake3.blake3_hash_words(words, blen),
               blake3.blake3_hash_words_plain(words, blen), (m, k))
         check("sha3_hash_rows", sha3.sha3_hash_words(words, blen),
@@ -545,15 +547,15 @@ def main() -> int:
          blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
         ("sha3", 8, sha3.sha3_merge_rows, sha3.sha3_merge_rows_plain,
          sha3.sha3_merkle_levels, sha3.sha3_merkle_levels_plain),
-        ("jive", 4, jive.jive_merge_rows, jive.jive_merge_rows_plain,
-         jive.jive_merkle_levels, jive.jive_merkle_levels_plain)]
+        ("jive", 4, None, None, jive.jive_merkle_levels,
+         jive.jive_merkle_levels_plain)]
     for family, w, merge, merge_plain, levels, levels_plain in hash_trees:
         for n in (1, 2, 4, tail // 2, tail, 2 * tail, chunk, 2 * chunk, big):
             makes = (both if w == 4 else
                      [lambda _, shape, where: _words(rng, shape, where)])
             for make in makes:
                 leaves = make(rng, (n, w), dev)
-                if n > 1:
+                if n > 1 and merge is not None:
                     check(f"{family}_merge_rows",
                           merge(leaves[0::2], leaves[1::2]),
                           merge_plain(leaves[0::2], leaves[1::2]), (n, w))
@@ -564,8 +566,8 @@ def main() -> int:
     # the byte coins' draw kernels, with rejected candidates planted: the
     # kernel then hashes further counters itself
     for coin in ("blake3_256", "blake3_192", "sha3_256"):
-        dw = device_coin.BYTE_KINDS[coin].digest_words
-        name = device_coin.BYTE_KINDS[coin].draw
+        dw = DEVICE_HASHERS[coin].digest_words
+        name = DEVICE_HASHERS[coin].draw
         _, next_byte = device_coin.byte_coin_ops(coin)
         for k, d, reject in ((1, 3, ()), (5, 3, ()), (7, 1, ()),
                              (3, 2, (1,)), (2, 3, (0, 1))):
@@ -717,26 +719,23 @@ def main() -> int:
             f"{1000 * spans['determine_query_positions']:.1f} ms, nonce "
             f"{proof.pow_nonce}; launches {used}; verified")
 
-    def must_launch(key, names) -> None:
-        for name in names:
+    def must_launch(key) -> None:
+        """Every kernel of the hasher's record was launched by that prove."""
+        for name in DEVICE_HASHERS[key[0]].launches:
             if not REHEARSAL and runs[key][name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by the "
                                      f"{key} prove")
 
-    rp64_kernels = ("rp64_hash_rows", "rp64_merge_rows", "rp64_merkle_tree",
-                    "gl_mul", "rp64_permute_rows", "rp64_coin_draw")
-    b3_kernels = ("blake3_hash_rows", "blake3_merge_rows",
-                  "blake3_merkle_tree", "blake3_coin_draw", "gl_mul")
     # bench.py's default workload (Rp64_256) and the same with Blake3_256,
     # each on the resident and the phased (fused FRI) route
-    for hasher, kernels_of in ((Rp64_256, rp64_kernels),
-                               (Blake3_256, b3_kernels)):
+    for hasher in (Rp64_256, Blake3_256):
         by_route = {route: timed_path(hasher, route, options)
                     for route in ("resident", "fused")}
         if by_route["resident"] != by_route["fused"]:
             raise AssertionError(f"{hasher.name}: the phased proof differs "
                                  "from the resident")
-        must_launch((hasher.name, "resident"), kernels_of)
+        must_launch((hasher.name, "resident"))
+        must_launch((hasher.name, "fused"))
     for route in ("resident", "fused"):
         counts = runs["rp64_256", route]
         k2 = counts["rp64_merge_rows"] + counts["rp64_merkle_tree"]
@@ -752,17 +751,12 @@ def main() -> int:
                        field_extension=FieldExtension.NONE,
                        fri_folding_factor=8, fri_remainder_max_degree=31)
     one_prove(Blake3_256, cli, "cli_default")
-    must_launch(("blake3_256", "cli_default"), b3_kernels)
-    # the other hashers, one prove each
-    one_prove(Blake3_192, options, "resident")
-    must_launch(("blake3_192", "resident"), b3_kernels)
-    one_prove(Sha3_256, options, "resident")
-    must_launch(("sha3_256", "resident"),
-                ("sha3_hash_rows", "sha3_merge_rows", "sha3_merkle_tree",
-                 "sha3_coin_draw", "gl_mul"))
-    one_prove(RpJive64_256, options, "host")
-    must_launch(("rp_jive64_256", "host"),
-                ("jive_hash_rows", "jive_merkle_tree", "gl_mul"))
+    must_launch(("blake3_256", "cli_default"))
+    # the other hashers, one prove each on the route the dispatch gives it
+    for hasher, route in ((Blake3_192, "resident"), (Sha3_256, "resident"),
+                          (RpJive64_256, "host")):
+        one_prove(hasher, options, route)
+        must_launch((hasher.name, route))
     prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
     tracing.set_phase_sync(True)
     phase("4 main path", t0)
@@ -813,14 +807,14 @@ def main() -> int:
                      _bound_draw(k, d))
 
     def b3_hash_entry(m, k, dw=8):
-        words, blen = blake3.rows_from_u64(_rng_field(rng, (m, k), dev))
+        words, blen = words_of(_rng_field(rng, (m, k), dev))
         return entry((m, k, dw),
                      lambda: blake3.blake3_hash_words(words, blen, dw),
                      lambda: blake3.blake3_hash_words_plain(words, blen, dw),
                      _bound_blake3(m, blen, dw))
 
     def sha3_hash_entry(m, k):
-        words, blen = blake3.rows_from_u64(_rng_field(rng, (m, k), dev))
+        words, blen = words_of(_rng_field(rng, (m, k), dev))
         return entry((m, k), lambda: sha3.sha3_hash_words(words, blen),
                      lambda: sha3.sha3_hash_words_plain(words, blen),
                      _bound_sha3(m, blen))
@@ -850,7 +844,7 @@ def main() -> int:
                      _bound_jive(n - 1, (2 * n - 1) * 32))
 
     def byte_draw_entry(coin, k, d):
-        dw = device_coin.BYTE_KINDS[coin].digest_words
+        dw = DEVICE_HASHERS[coin].digest_words
         seed_w = _words(rng, (dw,), dev)
         cands = device_coin.byte_coin_ops(coin)[1](seed_w, 0, k)
         # every candidate of these inputs is accepted (checked against the
@@ -962,20 +956,22 @@ def main() -> int:
          [jive_tree_entry(big), jive_tree_entry(big // 8),
           jive_tree_entry(big // 512)]),
     ]
-    # the path each kernel's launches are read from (its own prove):
-    # resident, and phased where the hasher has that route
-    path_of = {"rp64": "rp64_256", "gl": "rp64_256", "blake3": "blake3_256",
-               "sha3": "sha3_256", "jive": "rp_jive64_256"}
     kernels = []
     for name, replaces, source, shapes in records:
         main = shapes[0]
-        hasher_name = path_of[name.split("_")[0]]
-        route = "host" if hasher_name == "rp_jive64_256" else "resident"
-        phased = runs.get((hasher_name, "fused"), runs[hasher_name, route])
+        # the launches of the first hasher's prove that launches the kernel
+        # (its default route), and of its phased prove where one was timed
+        # (RpJive64_256's one route is phased); else null
+        hasher_name = next(h.name for h in DEVICE_HASHERS.values()
+                           if name in h.launches)
+        route = ("resident" if DEVICE_HASHERS[hasher_name].coin else "host")
+        phased = (runs[hasher_name, route] if route == "host" else
+                  runs.get((hasher_name, "fused")))
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[hasher_name, route][name],
-            "launches_phased": phased[name], "path": [hasher_name, route],
+            "launches_phased": None if phased is None else phased[name],
+            "path": [hasher_name, route],
             "max_abs_err": errs[name], "max_diff": errs[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

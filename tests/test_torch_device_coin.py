@@ -123,11 +123,12 @@ def test_draw_kernel_takes_only_cuda_tensors():
 def test_only_the_rp64_coin_is_ported():
     """The f64 coins are ported (Rp64_256 and, since the byte hashers came,
     Blake3_256, Blake3_192 and Sha3_256); Rp62_248 and the limb engines'
-    coins are not yet."""
+    coins are not yet, and RpJive64_256 has none, as in the reference."""
     for kind in ("rp64_256", "blake3_256", "blake3_192", "sha3_256"):
         dc.coin_bundle(kind, 3, "f64")
-    with pytest.raises(ValueError):
-        dc.coin_bundle("rp62_248", 3, "f64")
+    for kind in ("rp62_248", "rp_jive64_256"):
+        with pytest.raises(ValueError):
+            dc.coin_bundle(kind, 3, "f64")
     with pytest.raises(ValueError):
         dc.coin_bundle("rp64_256", 3, "f128")
     with pytest.raises(ValueError):

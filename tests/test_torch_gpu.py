@@ -17,6 +17,8 @@ from winterfell_tpu_torch.ops import blake3, device_coin, field_kernels, jive
 from winterfell_tpu_torch.ops import rescue, sha3
 from winterfell_tpu_torch.ops import goldilocks as gl
 from winterfell_tpu_torch.prover import device as prover_device
+from winterfell_tpu_torch.ops.device_hashers import DEVICE_HASHERS
+from winterfell_tpu_torch.ops.words import rows_from_u64
 from winterfell_tpu_torch.prover.device import GoldilocksProver
 
 pytestmark = pytest.mark.gpu
@@ -51,15 +53,33 @@ def _corners(rows, k, device):
     return torch.from_numpy(a.view(np.int64)).to(device)
 
 
+def _words(seed, shape, device):
+    """Random u32 words as int32, the first row all ones."""
+    a = np.random.default_rng(seed).integers(0, 2**32, size=shape,
+                                             dtype=np.uint32)
+    a[0] = 2**32 - 1
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 7, 8, 9, 12, 16, 24])
 @pytest.mark.parametrize("m", [1, 256, 1000])
 def test_hash_rows_kernel_equals_plain(cuda, m, k):
+    """K1 and the row hashes of B10 (BLAKE3, 8 and 6 digest words), B11
+    (SHA3; 24 elements are more than one rate block) and B12 (Jive), on
+    random and corner rows."""
     rows = _rand(m * 31 + k, (m, k), cuda)
-    assert torch.equal(rescue.rp64_hash_rows(rows),
-                       rescue.rp64_hash_rows_plain(rows))
     corners = _corners(m, k, cuda)
-    assert torch.equal(rescue.rp64_hash_rows(corners),
-                       rescue.rp64_hash_rows_plain(corners))
+    for x in (rows, corners):
+        assert torch.equal(rescue.rp64_hash_rows(x),
+                           rescue.rp64_hash_rows_plain(x))
+        assert torch.equal(jive.jive_hash_rows(x), jive.jive_hash_rows_plain(x))
+        words, byte_len = rows_from_u64(x)
+        assert torch.equal(sha3.sha3_hash_words(words, byte_len),
+                           sha3.sha3_hash_words_plain(words, byte_len))
+        for dw in (8, 6):
+            assert torch.equal(
+                blake3.blake3_hash_words(words, byte_len, dw),
+                blake3.blake3_hash_words_plain(words, byte_len, dw)), dw
 
 
 @pytest.mark.parametrize("m", [1, 3, 1 << 10, 1 << 16])
@@ -82,11 +102,32 @@ def test_merge_rows_kernel_equals_plain(cuda, m):
              1 << 16: (2 * tail * chunk, 1 << 21)}[m]
     for n in sizes:
         for leaves in (_rand(n + 7, (n, 4), cuda), _corners(n, 4, cuda)):
-            got = rescue.rp64_merkle_levels(leaves)
-            want = rescue.rp64_merkle_levels_plain(leaves)
-            assert len(got) == len(want), n
+            for levels, plain in (
+                    (rescue.rp64_merkle_levels,
+                     rescue.rp64_merkle_levels_plain),
+                    (jive.jive_merkle_levels, jive.jive_merkle_levels_plain)):
+                got, want = levels(leaves), plain(leaves)
+                assert len(got) == len(want), n
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (n, a.shape[0])
+    # B10 (8 and 6 digest words) and B11: a level's sibling merges and the
+    # tree at the same leaf counts, on random words (the first all ones)
+    for w, merge, merge_plain, levels, levels_plain in (
+            (8, blake3.blake3_merge_rows, blake3.blake3_merge_rows_plain,
+             blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
+            (6, blake3.blake3_merge_rows, blake3.blake3_merge_rows_plain,
+             blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
+            (8, sha3.sha3_merge_rows, sha3.sha3_merge_rows_plain,
+             sha3.sha3_merkle_levels, sha3.sha3_merkle_levels_plain)):
+        level = _words(m + 3, (2 * m, w), cuda)
+        assert torch.equal(merge(level[0::2], level[1::2]),
+                           merge_plain(level[0::2], level[1::2])), (w, m)
+        for n in sizes:
+            leaves = _words(n, (n, w), cuda)
+            got, want = levels(leaves), levels_plain(leaves)
+            assert len(got) == len(want), (w, n)
             for a, b in zip(got, want):
-                assert torch.equal(a, b), (n, a.shape[0])
+                assert torch.equal(a, b), (w, n, a.shape[0])
 
 
 def test_gl_mul_kernel_equals_plain_over_all_u64(cuda):
@@ -102,7 +143,8 @@ def test_gl_mul_kernel_equals_plain_over_all_u64(cuda):
                                           for x, y in zip(a_h, b_h)]
 
 
-def test_gl_mul_kernel_reads_broadcast_strided_and_int_operands(cuda):
+def test_gl_mul_kernel_reads_broadcast_strided_and_int_operands(cuda,
+                                                               monkeypatch):
     x = _rand(7, (64, 2, 16, 3), cuda, 2**64)
     y = _rand(8, (4, 256), cuda, 2**64)
     cases = [(x[:, 1], x[:, 0]), (x[:, 1], x[0, :1, :, :1]),
@@ -116,6 +158,13 @@ def test_gl_mul_kernel_reads_broadcast_strided_and_int_operands(cuda):
     for a, b in cases:
         assert torch.equal(field_kernels.gl_mul_kernel(a, b),
                            field_kernels.gl_mul_plain(a, b))
+    # a product above a lowered INDEX_LIMIT is split into several launches
+    x, y = _rand(3, (64, 100), cuda, 2**64), _rand(4, (100,), cuda, 2**64)
+    monkeypatch.setattr(field_kernels, "INDEX_LIMIT", 1000)
+    field_kernels.reset_launches()
+    got = field_kernels.gl_mul_kernel(x, y)
+    assert field_kernels.LAUNCHES["gl_mul"] > 1
+    assert torch.equal(got, field_kernels.gl_mul_plain(x, y))
 
 
 def test_permute_rows_kernel_equals_plain(cuda):
@@ -135,35 +184,58 @@ def test_coin_draw_kernel_equals_plain(cuda):
         got = device_coin.draw_kernel(cands, seed, 0, k, d)
         want = device_coin.draw_plain(cands, seed, 0, k, d)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # the byte coins' draw kernels, which hash the counters past a rejected
+    # candidate themselves
+    for kind in ("blake3_256", "blake3_192", "sha3_256"):
+        dw = DEVICE_HASHERS[kind].digest_words
+        _, next_candidates = device_coin.byte_coin_ops(kind)
+        for k, d, reject in ((1, 3, ()), (6, 3, ()), (4, 1, (2,)),
+                             (2, 2, (0, 1))):
+            seed = _words(k + dw, (dw,), cuda)
+            cands = next_candidates(seed, 0, k).clone()
+            for j in reject:  # a u64 word >= p: that counter is rejected
+                cands[j, :2] = -1
+            got = device_coin.byte_draw_kernel(kind, cands, seed, 0, k, d)
+            want = device_coin.draw_plain(cands, seed, 0, k, d, kind)
+            assert torch.equal(got[0], want[0]), (kind, k, d, reject)
+            assert torch.equal(got[1], want[1]), (kind, k, d, reject)
 
 
 def test_resident_and_phased_card_proofs_equal_cpu_proof(cuda, monkeypatch):
-    """Trace 2^10 (two FRI layers with bench_fib's options): both routes on
-    the card give the CPU's bytes; the resident device run makes no host
-    synchronisation."""
+    """Trace 2^10 (two FRI layers with bench_fib's options): every route of
+    Rp64_256 and Blake3_256 (resident, phased + fused FRI, phased + host
+    coin) and RpJive64_256's one (host coin) on the card give the CPU's
+    bytes; the resident device runs make no host synchronisation."""
     opts = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
     prover_cls = GoldilocksProver.accelerate(tfib.FibSmallProver)
-    cpu = prover_cls(opts, Rp64_256, device="cpu").prove(
-        tfib.build_fib_trace(F64, 2048))
     checked_runs = []
-    for resident in (True, False):
-        monkeypatch.setattr(prover_device, "_RESIDENT_ON_F64", resident)
-        prover = prover_cls(opts, Rp64_256)
-        run = prover._resident_run
+    routes = ("resident", "fused", "host")
+    for hasher, hasher_routes in ((Rp64_256, routes), (Blake3_256, routes),
+                                  (RpJive64_256, ("host",))):
+        cpu = prover_cls(opts, hasher, device="cpu").prove(
+            tfib.build_fib_trace(F64, 2048))
+        for route in hasher_routes:
+            monkeypatch.setattr(prover_device, "_RESIDENT_ON_F64",
+                                route == "resident")
+            monkeypatch.setattr(prover_device, "_FUSED_FRI_ON",
+                                route != "host")
+            prover = prover_cls(opts, hasher)
+            run = prover._resident_run
 
-        def checked(*args, **kwargs):
-            checked_runs.append(resident)
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                return run(*args, **kwargs)
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
+            def checked(*args, run=run, tag=(hasher.name, route), **kwargs):
+                checked_runs.append(tag)
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return run(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
 
-        prover._resident_run = checked
-        card = prover.prove(tfib.build_fib_trace(F64, 2048, device=cuda))
-        assert card.to_bytes() == cpu.to_bytes(), resident
-    assert checked_runs == [True]
+            prover._resident_run = checked
+            card = prover.prove(tfib.build_fib_trace(F64, 2048, device=cuda))
+            assert card.to_bytes() == cpu.to_bytes(), (hasher.name, route)
+    assert checked_runs == [("rp64_256", "resident"),
+                            ("blake3_256", "resident")]
 
 
 def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):
@@ -180,93 +252,3 @@ def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):
     # a trace this small has no FRI layer (host coin): no one-row reseed
     assert launches["rp64_hash_rows"] > 0 and launches["rp64_merkle_tree"] > 0
     assert launches["gl_mul"] > 0
-
-
-def _words(seed, shape, device):
-    """Random u32 words as int32, the first row all ones."""
-    a = np.random.default_rng(seed).integers(0, 2**32, size=shape,
-                                             dtype=np.uint32)
-    a[0] = 2**32 - 1
-    return torch.from_numpy(a.view(np.int32)).to(device)
-
-
-def test_byte_hasher_and_jive_kernels_equal_plain(cuda, monkeypatch):
-    """B10 (BLAKE3, 8 and 6 digest words), B11 (SHA3) and B12 (Jive): the
-    row hash at widths 1 ... 24 elements (and a SHA3 row over two rate
-    blocks), the merge of a level's sibling pairs, the tree at leaf counts
-    around the one-block tail and the multi-level blocks, each on random
-    and corner values; the byte coins' draw kernels with rejected
-    candidates planted; and K3 split into several launches under a lowered
-    INDEX_LIMIT."""
-    tail, chunk = 1 << rescue._TREE_TAIL_LOG, 1 << rescue._TREE_CHUNK_LOG
-    for k in (1, 2, 3, 8, 24, 40):
-        for m in (1, 1000):
-            for rows in (_rand(m + k, (m, k), cuda), _corners(m, k, cuda)):
-                words, byte_len = blake3.rows_from_u64(rows)
-                assert torch.equal(sha3.sha3_hash_words(words, byte_len),
-                                   sha3.sha3_hash_words_plain(words,
-                                                              byte_len)), k
-                assert torch.equal(jive.jive_hash_rows(rows),
-                                   jive.jive_hash_rows_plain(rows)), k
-                for dw in (8, 6):
-                    assert torch.equal(
-                        blake3.blake3_hash_words(words, byte_len, dw),
-                        blake3.blake3_hash_words_plain(words, byte_len, dw))
-    cases = [(8, blake3.blake3_merge_rows, blake3.blake3_merge_rows_plain,
-              blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
-             (6, blake3.blake3_merge_rows, blake3.blake3_merge_rows_plain,
-              blake3.blake3_merkle_levels, blake3.blake3_merkle_levels_plain),
-             (8, sha3.sha3_merge_rows, sha3.sha3_merge_rows_plain,
-              sha3.sha3_merkle_levels, sha3.sha3_merkle_levels_plain),
-             (4, jive.jive_merge_rows, jive.jive_merge_rows_plain,
-              jive.jive_merkle_levels, jive.jive_merkle_levels_plain)]
-    for w, merge, merge_plain, levels, levels_plain in cases:
-        for n in (1, 2, 4, tail // 2, tail, 2 * tail, chunk, 4 * chunk):
-            for leaves in ((_rand(n, (n, 4), cuda), _corners(n, 4, cuda))
-                           if w == 4 else (_words(n, (n, w), cuda),)):
-                if n > 1:
-                    assert torch.equal(merge(leaves[0::2], leaves[1::2]),
-                                       merge_plain(leaves[0::2],
-                                                   leaves[1::2])), (w, n)
-                got, want = levels(leaves), levels_plain(leaves)
-                assert len(got) == len(want), (w, n)
-                for a, b in zip(got, want):
-                    assert torch.equal(a, b), (w, n, a.shape[0])
-    for kind in ("blake3_256", "blake3_192", "sha3_256"):
-        dw = device_coin.BYTE_KINDS[kind].digest_words
-        _, next_candidates = device_coin.byte_coin_ops(kind)
-        for k, d, reject in ((1, 3, ()), (6, 3, ()), (4, 1, (2,)),
-                             (2, 2, (0, 1))):
-            seed = _words(k + dw, (dw,), cuda)
-            cands = next_candidates(seed, 0, k).clone()
-            for j in reject:  # a u64 word >= p: that counter is rejected
-                cands[j, :2] = -1
-            got = device_coin.byte_draw_kernel(kind, cands, seed, 0, k, d)
-            want = device_coin.draw_plain(cands, seed, 0, k, d, kind)
-            assert torch.equal(got[0], want[0]), (kind, k, d, reject)
-            assert torch.equal(got[1], want[1]), (kind, k, d, reject)
-    x, y = _rand(3, (64, 100), cuda, 2**64), _rand(4, (100,), cuda, 2**64)
-    monkeypatch.setattr(field_kernels, "INDEX_LIMIT", 1000)
-    field_kernels.reset_launches()
-    got = field_kernels.gl_mul_kernel(x, y)
-    assert field_kernels.LAUNCHES["gl_mul"] > 1
-    assert torch.equal(got, field_kernels.gl_mul_plain(x, y))
-
-
-def test_byte_hasher_card_proofs_equal_cpu_proof(cuda, monkeypatch):
-    """Trace 2^10 with Blake3_256 on its three routes and RpJive64_256 on
-    its one (host coin): the card's bytes equal the CPU's."""
-    opts = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
-    prover_cls = GoldilocksProver.accelerate(tfib.FibSmallProver)
-    for hasher, routes in ((Blake3_256, ("resident", "fused", "host")),
-                           (RpJive64_256, ("host",))):
-        cpu = prover_cls(opts, hasher, device="cpu").prove(
-            tfib.build_fib_trace(F64, 2048)).to_bytes()
-        for route in routes:
-            monkeypatch.setattr(prover_device, "_RESIDENT_ON_F64",
-                                route == "resident")
-            monkeypatch.setattr(prover_device, "_FUSED_FRI_ON",
-                                route != "host")
-            card = prover_cls(opts, hasher).prove(
-                tfib.build_fib_trace(F64, 2048, device=cuda))
-            assert card.to_bytes() == cpu, (hasher.name, route)

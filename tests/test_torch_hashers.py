@@ -4,7 +4,9 @@ winterfell_tpu.crypto.hashers, the native BLAKE3 against its pure-Python
 copy, the plain row hashes, merges and Merkle trees of ops/blake3.py,
 ops/sha3.py and ops/jive.py against the JAX device functions on XLA:CPU, and
 the byte-hasher device coin against the host DefaultRandomCoin. Exact
-equality throughout: every value is an integer."""
+equality throughout: every value is an integer. One test item runs the four
+checks in turn (the tier-1 run's xdist chunks are sized from the item
+count)."""
 
 import jax
 import numpy as np
@@ -20,6 +22,7 @@ from winterfell_tpu_torch.crypto import hashers as port_hashers
 from winterfell_tpu_torch.crypto.random_coin import DefaultRandomCoin
 from winterfell_tpu_torch.math.fields import F64, Field
 from winterfell_tpu_torch.ops import blake3, device_coin, jive, sha3
+from winterfell_tpu_torch.ops.words import rows_from_u64
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -61,7 +64,7 @@ def _elements(rng, shape) -> np.ndarray:
     return a
 
 
-def test_port_hashers_equal_jax_host_hashers():
+def _host_hashers_equal_jax_host_hashers():
     """hash, merge, merge_many, merge_with_int and hash_elements of every
     f64 hasher, on random bytes, digests, counters (both sides of p) and
     element lists of each extension degree."""
@@ -91,7 +94,7 @@ def test_port_hashers_equal_jax_host_hashers():
                     (name, d, k)
 
 
-def test_native_blake3_equals_python_blake3():
+def _native_blake3_equals_python_blake3():
     """The library built from native/blake3.c against the pure-Python
     BLAKE3: one-shot hashes (one chunk and several), many rows in one call,
     and the grinding scan against the serial Python loop."""
@@ -115,7 +118,7 @@ def test_native_blake3_equals_python_blake3():
         assert native.blake3_grind(seed, zeros) == nonce
 
 
-def test_plain_row_hashes_equal_jax_device_functions():
+def _plain_row_hashes_equal_jax_device_functions():
     """The plain row hash, merge and Merkle levels of each new hasher (the
     CPU path of the kernel wrappers) against blake3_device, sha3_device and
     jive_device at the widths of the main path (the widest over two SHA3
@@ -124,7 +127,7 @@ def test_plain_row_hashes_equal_jax_device_functions():
     rng = np.random.default_rng(13)
     for k in WIDTHS:
         rows = _elements(rng, (6, k))
-        words, byte_len = blake3.rows_from_u64(_t64(rows))
+        words, byte_len = rows_from_u64(_t64(rows))
         j_words, j_len = blake3_device.rows_from_u64(rows)
         assert byte_len == j_len and (_u32(words) == np.asarray(j_words)).all()
         for dw in (8, 6) if k == 2 else (8,):  # 6: Blake3_192's truncation
@@ -162,7 +165,8 @@ def test_plain_row_hashes_equal_jax_device_functions():
         assert len(got) == len(want) == 4
         assert all((a == b).all() for a, b in zip(got, want)), dw
     leaves = _elements(rng, (16, 4))
-    assert (jive.jive_merge_rows(_t64(leaves[0::2]), _t64(leaves[1::2]))
+    assert (jive.jive_merge_rows_plain(_t64(leaves[0::2]),
+                                       _t64(leaves[1::2]))
             .numpy().view(np.uint64) == np.asarray(jive_device.jive_merge_rows(
                 leaves[0::2], leaves[1::2]))).all()
     got = [lv.numpy().view(np.uint64) for lv in jive.jive_merkle_levels(
@@ -172,7 +176,7 @@ def test_plain_row_hashes_equal_jax_device_functions():
     assert all((a == b).all() for a, b in zip(got, want))
 
 
-def test_byte_coin_equals_host_coin():
+def _byte_coin_equals_host_coin():
     """coin_bundle of each byte kind on the CPU against the host
     DefaultRandomCoin: reseed, k draws of each extension degree and the
     counter after them; then the rejection path, with a candidate >= p
@@ -209,3 +213,12 @@ def test_byte_coin_equals_host_coin():
         assert [tuple(int(x) for x in row)
                 for row in elems.numpy().view(np.uint64)] == \
             [ok[0], ok[2], ok[3]]
+
+
+def test_port_hashers_equal_jax():
+    """Host hashers, native BLAKE3, the plain B10-B12 functions and the byte
+    coin, each against its JAX or host counterpart."""
+    _host_hashers_equal_jax_host_hashers()
+    _native_blake3_equals_python_blake3()
+    _plain_row_hashes_equal_jax_device_functions()
+    _byte_coin_equals_host_coin()

@@ -81,6 +81,54 @@ def _prove_on_routes(prover, trace_fn, monkeypatch, routes=ROUTES):
     return out
 
 
+# (hasher name, extension, partitions, grinding, routes the JAX dispatch
+# gives it): the cases of tests/test_device_f64_byte_hashers.py, fib 256
+# with ProofOptions(28, 8, grinding, ext, 4, 7), spread over the cases of
+# test_port_proof_bytes_equal_jax_host_proof; RpJive64_256 has no device
+# coin, so only the host-coin route
+_BYTE_HASHER_CASES = {
+    (3, "CUBIC"): [("blake3_256", "CUBIC", None, 4, ("resident",)),
+                   ("rp_jive64_256", "QUADRATIC", None, 0, ("host",))],
+    (5, "CUBIC"): [("blake3_256", "NONE", None, 0, ROUTES),
+                   ("sha3_256", "CUBIC", None, 0, ("resident",))],
+    (4, "NONE"): [("blake3_256", "CUBIC", None, 0, ROUTES),
+                  ("sha3_256", "NONE", None, 0, ROUTES)],
+    (4, "QUADRATIC"): [("blake3_192", "CUBIC", None, 0, ROUTES),
+                       ("blake3_256", "QUADRATIC", (2, 2), 0,
+                        ("resident", "host"))],
+}
+
+
+def _byte_hasher_options(pkg, ext_name, partitions, grinding):
+    options = pkg.ProofOptions(28, 8, grinding,
+                               getattr(pkg.FieldExtension, ext_name), 4, 7)
+    return options.with_partitions(*partitions) if partitions else options
+
+
+def _pin_byte_hashers(cases, monkeypatch):
+    """Blake3_256, Blake3_192, Sha3_256 and RpJive64_256: each route the JAX
+    dispatch gives the hasher yields the JAX host prover's bytes (with
+    partitions and with grinding 4, whose BLAKE3 nonce scan runs in the
+    native library), and each verifier accepts the other package's proof."""
+    for name, ext_name, partitions, grinding, routes in cases:
+        jax_h, port_h = jax_hashers.HASHERS[name], port_hashers.HASHERS[name]
+        ref = FibSmallProver(
+            _byte_hasher_options(_JaxOpts, ext_name, partitions, grinding),
+            jax_h).prove(build_fib_trace(F64, 256)).to_bytes()
+        prover = PortProver(
+            _byte_hasher_options(wt, ext_name, partitions, grinding), port_h,
+            device="cpu")
+        by_route = _prove_on_routes(
+            prover, lambda: tfib.build_fib_trace(wt.F64, 256), monkeypatch,
+            routes)
+        assert by_route == {route: ref for route in routes}, (name, ext_name)
+        result = compute_fib_term(F64, 256)
+        proof = wt.Proof.from_bytes(ref)
+        wt.verify(tfib.FibSmallAir, proof, result, port_h)
+        verify(FibSmallAir, Proof.from_bytes(by_route[routes[0]]), result,
+               jax_h)
+
+
 # the case that also pins the host-coin route (it differs from the fused
 # route only in the FRI phase) and bench_fib's options (no FRI layer)
 _FULL_CASE = (3, "CUBIC")
@@ -93,7 +141,8 @@ def test_port_proof_bytes_equal_jax_host_proof(log_n, ext_name, monkeypatch):
     the routes), and each verifier accepts the other package's proof. One
     case also runs the host-coin route, and bench_fib's remainder degree 31,
     where the trace has no FRI layer: every switch setting then takes the
-    phased route with an empty fold loop, as the JAX package does."""
+    phased route with an empty fold loop, as the JAX package does. Each case
+    then pins two of the other hashers' proofs (``_BYTE_HASHER_CASES``)."""
     seq = 2 << log_n
     full = (log_n, ext_name) == _FULL_CASE
     routes = ROUTES if full else ("resident", "fused")
@@ -130,6 +179,7 @@ def test_port_proof_bytes_equal_jax_host_proof(log_n, ext_name, monkeypatch):
                           device="cpu").prove(tfib.build_fib_trace(wt.F64,
                                                                    seq))
         assert port.to_bytes() == ref
+    _pin_byte_hashers(_BYTE_HASHER_CASES[log_n, ext_name], monkeypatch)
 
 
 @pytest.mark.parametrize("batching,partitions", [("LINEAR", 2),
@@ -159,54 +209,6 @@ def test_port_proof_with_batching_and_partitions(batching, partitions,
         lambda: tfib.build_fib_trace(wt.F64, 16), monkeypatch,
         ("resident", "host"))
     assert by_route == {"resident": ref, "host": ref}
-
-
-# (hasher name, extension, partitions, grinding, routes the JAX dispatch
-# gives it): the cases of tests/test_device_f64_byte_hashers.py, fib 256
-# with ProofOptions(28, 8, grinding, ext, 4, 7); RpJive64_256 has no device
-# coin, so only the host-coin route
-_BYTE_HASHER_CASES = {
-    "blake3": [("blake3_256", "NONE", None, 0, ROUTES),
-               ("blake3_256", "CUBIC", None, 0, ROUTES),
-               ("blake3_192", "CUBIC", None, 0, ROUTES),
-               ("blake3_256", "QUADRATIC", (2, 2), 0, ("resident", "host")),
-               ("blake3_256", "CUBIC", None, 4, ("resident",))],
-    "sha3_jive": [("sha3_256", "NONE", None, 0, ROUTES),
-                  ("sha3_256", "CUBIC", None, 0, ("resident",)),
-                  ("rp_jive64_256", "QUADRATIC", None, 0, ("host",))],
-}
-
-
-def _byte_hasher_options(pkg, ext_name, partitions, grinding):
-    options = pkg.ProofOptions(28, 8, grinding,
-                               getattr(pkg.FieldExtension, ext_name), 4, 7)
-    return options.with_partitions(*partitions) if partitions else options
-
-
-@pytest.mark.parametrize("family", sorted(_BYTE_HASHER_CASES))
-def test_port_byte_hasher_proofs_equal_jax_host_proof(family, monkeypatch):
-    """Blake3_256, Blake3_192, Sha3_256 and RpJive64_256: each route the JAX
-    dispatch gives the hasher yields the JAX host prover's bytes (with
-    partitions and with grinding 4, whose BLAKE3 nonce scan runs in the
-    native library), and each verifier accepts the other package's proof."""
-    for name, ext_name, partitions, grinding, routes in \
-            _BYTE_HASHER_CASES[family]:
-        jax_h, port_h = jax_hashers.HASHERS[name], port_hashers.HASHERS[name]
-        ref = FibSmallProver(
-            _byte_hasher_options(_JaxOpts, ext_name, partitions, grinding),
-            jax_h).prove(build_fib_trace(F64, 256)).to_bytes()
-        prover = PortProver(
-            _byte_hasher_options(wt, ext_name, partitions, grinding), port_h,
-            device="cpu")
-        by_route = _prove_on_routes(
-            prover, lambda: tfib.build_fib_trace(wt.F64, 256), monkeypatch,
-            routes)
-        assert by_route == {route: ref for route in routes}, (name, ext_name)
-        result = compute_fib_term(F64, 256)
-        proof = wt.Proof.from_bytes(ref)
-        wt.verify(tfib.FibSmallAir, proof, result, port_h)
-        verify(FibSmallAir, Proof.from_bytes(by_route[routes[0]]), result,
-               jax_h)
 
 
 class _Taken(Exception):

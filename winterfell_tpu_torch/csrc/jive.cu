@@ -1,5 +1,5 @@
-// RpJive64_256 for Hopper (B12): the sponge row hash, the Jive 2-to-1
-// compression per level and over whole Merkle trees.
+// RpJive64_256 for Hopper (B12): the sponge row hash and whole Merkle
+// trees, whose nodes are the Jive 2-to-1 compression.
 //
 // Replaces the jnp programs of winterfell_tpu/ops/jive_device.py
 // (jive_permutation_rows, jive_hash_rows, jive_merge_rows,
@@ -125,29 +125,6 @@ jive_hash_rows_kernel(const uint64_t* __restrict__ rows,
   }
 }
 
-// One level: merge(left[i], right[i]) with rows at left + i·stride and
-// right + i·stride (stride 8 merges a level's sibling pairs in place).
-__global__ void __launch_bounds__(BLOCK)
-jive_merge_rows_kernel(const uint64_t* __restrict__ left,
-                       const uint64_t* __restrict__ right,
-                       uint64_t* __restrict__ out,
-                       const uint64_t* __restrict__ ark, int64_t m,
-                       int64_t stride) {
-  __shared__ uint64_t ark_s[ARK_SIZE];
-  load_ark(ark_s, ark, ARK_SIZE);
-  const int t = threadIdx.x % GROUP;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / GROUP);
-  if (first_row_of_warp(row0) >= m) return;
-  const int64_t i_raw = row0 + threadIdx.x / GROUP;
-  const bool store = i_raw < m;
-  const int64_t i = store ? i_raw : m - 1;
-  uint64_t d[LANES];
-  if (jive_merge(left + i * stride, right + i * stride, ark_s, t, d) && store) {
-#pragma unroll
-    for (int j = 0; j < LANES; ++j) out[i * 4 + t * LANES + j] = d[j];
-  }
-}
-
 // Whole trees, as rescue.cu's merkle_levels_kernel: each block merges the
 // 2^b nodes [blockIdx·2^b, ..) of the level `in` into b levels, level l
 // starting (size of in − 2·its size) rows after `out`; a level's nodes stay
@@ -208,17 +185,6 @@ int wt_jive_hash_rows(const void* rows, void* out, const void* ark, int64_t m,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(rows), static_cast<uint64_t*>(out),
       static_cast<const uint64_t*>(ark), m, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// left/right rows of 4 at a row stride of `stride` elements, out (m, 4).
-int wt_jive_merge_rows(const void* left, const void* right, void* out,
-                       const void* ark, int64_t m, int64_t stride,
-                       void* stream) {
-  jive_merge_rows_kernel<<<grid_for(m), BLOCK, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(left), static_cast<const uint64_t*>(right),
-      static_cast<uint64_t*>(out), static_cast<const uint64_t*>(ark), m, stride);
   return static_cast<int>(cudaGetLastError());
 }
 

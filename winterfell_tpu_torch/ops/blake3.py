@@ -2,12 +2,10 @@
 Blake3_256 (8 digest words) and Blake3_192 (6): the port of the jnp
 programs of winterfell_tpu/ops/blake3_device.py.
 
-Messages and digests are u32 words in int32 tensors (the bit patterns): a
-row of int64 field elements viewed as int32 (``rows_from_u64``) is its
-little-endian element bytes, the message the reference hashes
-(crypto/src/hash/blake/mod.rs:52-66), and a digest's bytes are its words in
-``<u4`` order. Each row is at most one 1024-byte chunk; longer rows raise,
-as the JAX package asserts (blake3_device.py:119).
+Messages and digests are u32 words in int32 tensors (``ops/words.py``:
+``rows_from_u64`` makes the message of an element row). Each row is at most
+one 1024-byte chunk; longer rows raise, as the JAX package asserts
+(blake3_device.py:119).
 
 Each function has three parts:
 
@@ -31,8 +29,8 @@ from typing import Dict
 import torch
 
 from . import rescue
+from .words import M32, check_leaves, check_pair, check_words, i32, u32
 
-M32 = 0xFFFFFFFF
 MAX_BYTES = 1024  # one chunk
 
 _IV = (0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -48,28 +46,6 @@ LAUNCHES: Dict[str, int] = {"blake3_hash_rows": 0, "blake3_merge_rows": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-# ================================================================================
-# Words and bytes
-# ================================================================================
-
-
-def rows_from_u64(rows):
-    """(m, k) contiguous int64 element rows -> ((m, 2k) int32 words, byte
-    length): the little-endian element bytes are the [lo32, hi32] word pairs
-    as the elements lie in memory."""
-    return rows.view(torch.int32), 8 * rows.shape[1]
-
-
-def u32(words):
-    """int32 words -> their unsigned values in an int64 tensor."""
-    return words.to(torch.int64) & M32
-
-
-def i32(values):
-    """int64 values in [0, 2^32) -> int32 words with the same bits."""
-    return torch.where(values >= 2**31, values - 2**32, values).to(torch.int32)
 
 
 def _check_byte_len(byte_len: int) -> None:
@@ -189,38 +165,6 @@ def _kernels():
         lib.wt_blake3_coin_draw.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def check_words(t, name: str) -> None:
-    """What the byte-hash kernels read: a 2-D int32 tensor of unit word
-    stride on cpu or cuda (checked on every device, so that the CPU tests
-    hold the callers to it)."""
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32 words, got {t.dtype}")
-    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
-        raise ValueError(f"{name}: expected 2-D words of unit stride, got "
-                         f"shape {tuple(t.shape)} strides {t.stride()}")
-    rescue._device_kind(t)
-
-
-def check_pair(left, right, name: str) -> None:
-    check_words(left, name)
-    check_words(right, name)
-    if left.shape != right.shape or left.device != right.device:
-        raise ValueError(f"{name}: expected two digest tensors of one shape "
-                         f"and device, got {tuple(left.shape)} on "
-                         f"{left.device} and {tuple(right.shape)} on "
-                         f"{right.device}")
-    if left.shape[0] > 1 and left.stride(0) != right.stride(0):
-        raise ValueError(f"{name}: the two operands need equal row strides")
-
-
-def check_leaves(leaves, name: str) -> None:
-    check_words(leaves, name)
-    n = leaves.shape[0]
-    if n < 1 or n & (n - 1) or not leaves.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous leaves, a power of two "
-                         f"of them, got {tuple(leaves.shape)}")
 
 
 def blake3_hash_words(words, byte_len: int, digest_words: int = 8):

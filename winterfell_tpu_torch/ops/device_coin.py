@@ -34,14 +34,15 @@ tensor coming out.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Callable, Dict, NamedTuple
+from typing import Dict
 
 import numpy as np
 import torch
 
 from ..math.fields import GOLDILOCKS_P
-from . import blake3, rescue, sha3
 from . import goldilocks as gl
+from . import rescue
+from .device_hashers import DEVICE_HASHERS
 
 P = GOLDILOCKS_P
 MAX_TRIES = 1000  # a draw gives up after this many candidates, as the host coin
@@ -52,27 +53,11 @@ LAUNCHES: Dict[str, int] = {"rp64_permute_rows": 0, "rp64_coin_draw": 0,
 
 
 
-class ByteKind(NamedTuple):
-    """A byte-hasher coin: its row hash (and plain version), merge, digest
-    words, and its draw kernel's name (count key and entry point
-    ``wt_<draw>`` of the library ``kernels()`` loads)."""
-    hash_words: Callable
-    hash_words_plain: Callable
-    merge_rows: Callable
-    digest_words: int
-    draw: str
-    kernels: Callable
-
-
-_BLAKE3 = (blake3.blake3_hash_words, blake3.blake3_hash_words_plain,
-           blake3.blake3_merge_rows)
-BYTE_KINDS = {
-    "blake3_256": ByteKind(*_BLAKE3, 8, "blake3_coin_draw", blake3._kernels),
-    "blake3_192": ByteKind(*_BLAKE3, 6, "blake3_coin_draw", blake3._kernels),
-    "sha3_256": ByteKind(sha3.sha3_hash_words, sha3.sha3_hash_words_plain,
-                         sha3.sha3_merge_rows, 8, "sha3_coin_draw",
-                         sha3._kernels),
-}
+def _byte_coin(kind: str):
+    """The record of a byte-hasher coin (``ops/device_hashers.py``), or
+    None for Rp64_256 and for a kind with no device coin."""
+    h = DEVICE_HASHERS.get(kind)
+    return h if h is not None and h.coin and h.kind == "bytes" else None
 
 
 def reset_launches() -> None:
@@ -109,7 +94,7 @@ def seed_tensor(seed: bytes, device, kind: str = "rp64_256") -> torch.Tensor:
     """Host coin seed bytes -> the device seed of coin ``kind``: (4,) int64
     digest elements for Rp64_256, (dw,) int32 digest words for a byte
     hasher."""
-    if kind in BYTE_KINDS:
+    if _byte_coin(kind) is not None:
         return torch.from_numpy(seed_to_words(seed).view(np.int32)).to(device)
     return torch.from_numpy(seed_to_u64(seed).view(np.int64)).to(device)
 
@@ -208,7 +193,7 @@ def byte_coin_ops(kind: str):
     - ``next_candidates(seed, counter0, t)``: the (t, dw) candidate digests
       hash(seed ‖ LE64(c)) for c = counter0 + 1 .. counter0 + t, one
       row-hash launch."""
-    bk = BYTE_KINDS[kind]
+    bk = _byte_coin(kind)
     dw = bk.digest_words
 
     def merge(seed, other):
@@ -216,8 +201,8 @@ def byte_coin_ops(kind: str):
                              other.reshape(1, dw)).reshape(dw)
 
     def next_candidates(seed, counter0: int, t: int):
-        return bk.hash_words(_candidate_messages(seed, counter0, t),
-                             4 * dw + 8, dw)
+        return bk.hash_rows(_candidate_messages(seed, counter0, t),
+                            4 * dw + 8, dw)
 
     return merge, next_candidates
 
@@ -256,7 +241,7 @@ def draw_plain(cands, seed, counter0: int, k: int, d: int,
     to test each candidate): (elems (k, d), counter (1,)). ``cands`` are the
     permuted candidate states (t, 12) for Rp64_256, the candidate digests
     (t, dw) for a byte hasher."""
-    bk = BYTE_KINDS.get(kind)
+    bk = _byte_coin(kind)
     byte = bk is not None
     decode = u64_ext_decoder(P, d, from_words=byte)
     elems, ctr, j = [], counter0, 0
@@ -267,7 +252,7 @@ def draw_plain(cands, seed, counter0: int, k: int, d: int,
                 digest = cands[j] if byte else cands[j, 4:8]
             elif byte:
                 dw = bk.digest_words
-                digest = bk.hash_words_plain(
+                digest = bk.hash_rows_plain(
                     _candidate_messages(seed, ctr - 1, 1), 4 * dw + 8, dw)[0]
             else:
                 digest = permute_rows_plain(
@@ -321,7 +306,7 @@ def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int):
     counter0 + 1 .., hashing further counters on the card if candidates are
     rejected. Returns (elems (k, d), counter (1,)); the counter is 2^64 − 1
     (−1 as int64) if a draw found nothing in 1000 candidates."""
-    bk = BYTE_KINDS[kind]
+    bk = _byte_coin(kind)
     dw = bk.digest_words
     for t, what in ((cands, "cands"), (seed, "seed")):
         if t.dtype != torch.int32 or not t.is_contiguous():
@@ -337,7 +322,7 @@ def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int):
     dev = seed.device
     elems = torch.empty((k, d), dtype=gl.I64, device=dev)
     counter = torch.empty((1,), dtype=gl.I64, device=dev)
-    entry = getattr(bk.kernels(), f"wt_{bk.draw}")
+    entry = getattr(bk.library(), f"wt_{bk.draw}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = entry(cands.data_ptr(), seed.data_ptr(), elems.data_ptr(),
@@ -358,7 +343,7 @@ def make_draw(next_candidates, degree: int, kind: str = "rp64_256"):
         cands = next_candidates(seed, counter, k)
         if seed.device.type == "cpu":
             return draw_plain(cands, seed, counter, k, degree, kind)
-        if kind in BYTE_KINDS:
+        if _byte_coin(kind) is not None:
             return byte_draw_kernel(kind, cands, seed, counter, k, degree)
         return draw_kernel(cands, seed, counter, k, degree)
 
@@ -388,7 +373,8 @@ def coin_bundle(kind: str, degree: int, eng_name: str = "f64"):
     """(merge, draw) for a prover configuration: Rp64_256 and the byte
     hashers over f64 (Rp62_248 and the limb engines come with their
     slices)."""
-    if eng_name != "f64" or (kind != "rp64_256" and kind not in BYTE_KINDS):
+    h = DEVICE_HASHERS.get(kind)
+    if eng_name != "f64" or h is None or not h.coin:
         raise ValueError(f"no device coin for {kind!r} over {eng_name!r}")
     if kind == "rp64_256":
         merge, next_candidates = rp64_coin_ops()

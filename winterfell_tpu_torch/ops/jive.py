@@ -8,11 +8,14 @@ the last permutation (rp64_256_jive/mod.rs:183-206); the merge is the Jive
 compression, jive(x, y) = Σ(initial halves) + Σ(final halves), not a sponge
 (mod.rs:94-111). Digests are (m, 4) int64 field elements, as Rp64_256's.
 
-Each function has a wrapper that launches the hand-written kernel of
-``csrc/jive.cu`` for a CUDA tensor (counted in ``LAUNCHES``) and runs the
-plain version for a CPU tensor, and the plain PyTorch version (``*_plain``)
-that the CPU tests use and ``chip_smoke.py`` holds the kernel against; the
-plain permutation is ``ops/rescue.py``'s S-boxes and MDS product at width 8.
+The row hash and the tree each have a wrapper that launches the
+hand-written kernel of ``csrc/jive.cu`` for a CUDA tensor (counted in
+``LAUNCHES``) and runs the plain version for a CPU tensor, and a plain
+PyTorch version (``*_plain``) that the CPU tests use and ``chip_smoke.py``
+holds the kernel against; the plain permutation is ``ops/rescue.py``'s
+S-boxes and MDS product at width 8. The merge has only its plain version:
+on the card the tree kernel merges (RpJive64_256 has no device coin to
+reseed with a lone merge).
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ from . import rescue
 _WIDTH, _RATE, _ROUNDS = 8, 4, 7
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"jive_hash_rows": 0, "jive_merge_rows": 0,
-                            "jive_merkle_tree": 0}
+LAUNCHES: Dict[str, int] = {"jive_hash_rows": 0, "jive_merkle_tree": 0}
 
 # (2, 7, 8): ARK1 then ARK2, the layout the kernels read
 _ARK_NP = np.stack([np.array(JIVE_ARK1, dtype=np.uint64).view(np.int64),
@@ -123,8 +125,6 @@ def _kernels():
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.wt_jive_hash_rows.argtypes = [vp, vp, vp, i64, i64, vp]
         lib.wt_jive_hash_rows.restype = ctypes.c_int
-        lib.wt_jive_merge_rows.argtypes = [vp, vp, vp, vp, i64, i64, vp]
-        lib.wt_jive_merge_rows.restype = ctypes.c_int
         lib.wt_jive_merkle_levels.argtypes = [vp, vp, vp, i32, i32, vp]
         lib.wt_jive_merkle_levels.restype = ctypes.c_int
         _lib = lib
@@ -153,38 +153,6 @@ def jive_hash_rows(rows):
                                     stream)
     rescue._raise_on(err, "jive_hash_rows")
     LAUNCHES["jive_hash_rows"] += 1
-    return out
-
-
-def jive_merge_rows(left, right):
-    """B12 merge: jive(left[i], right[i]) of (m, 4) digests, each of unit
-    element stride and the two of one row stride."""
-    rescue._check(left, "jive_merge_rows")
-    rescue._check(right, "jive_merge_rows")
-    if left.shape != right.shape or left.shape[1] != 4 or \
-            left.device != right.device:
-        raise ValueError("jive_merge_rows: expected two (m, 4) tensors on one "
-                         f"device, got {tuple(left.shape)} and "
-                         f"{tuple(right.shape)}")
-    m = left.shape[0]
-    if left.stride(1) != 1 or right.stride(1) != 1 or (
-            m > 1 and left.stride(0) != right.stride(0)):
-        raise ValueError("jive_merge_rows: rows need unit element stride and "
-                         "equal row strides")
-    if rescue._device_kind(left) == "cpu":
-        return jive_merge_rows_plain(left, right)
-    out = torch.empty((m, 4), dtype=torch.int64, device=left.device)
-    if m == 0:
-        return out
-    lib = _kernels()
-    with torch.cuda.device(left.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.wt_jive_merge_rows(left.data_ptr(), right.data_ptr(),
-                                     out.data_ptr(),
-                                     table("ark", left.device).data_ptr(), m,
-                                     left.stride(0) if m > 1 else 4, stream)
-    rescue._raise_on(err, "jive_merge_rows")
-    LAUNCHES["jive_merge_rows"] += 1
     return out
 
 

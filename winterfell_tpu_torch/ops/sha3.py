@@ -1,8 +1,8 @@
 """SHA3-256 row hashing, 2-to-1 merge and whole Merkle trees (B11): the port
 of the jnp programs of winterfell_tpu/ops/sha3_device.py.
 
-Messages and digests are u32 words in int32 tensors, as in ``ops/blake3.py``
-(``rows_from_u64`` makes the message of an element row). Rows of any length
+Messages and digests are u32 words in int32 tensors (``ops/words.py``:
+``rows_from_u64`` makes the message of an element row). Rows of any length
 absorb in 136-byte rate blocks with the padding 0x06 … 0x80; the digest is
 the first 32 bytes of the state, 8 words.
 
@@ -22,7 +22,7 @@ from typing import Dict
 import torch
 
 from . import rescue
-from .blake3 import M32, check_leaves, check_pair, check_words, i32, u32
+from .words import M32, check_leaves, check_pair, check_words, i32, u32
 
 RATE_BYTES = 136  # SHA3-256: 1600/8 − 2·32
 _RATE_LANES = RATE_BYTES // 8

@@ -63,8 +63,7 @@ def main() -> int:
     from .utils import tracing
 
     options = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
-    hasher = (hashers.Rp64_256 if args.hasher == "rp64_256"
-              else hashers.HASHERS[args.hasher])
+    hasher = hashers.HASHERS[args.hasher]
     prover = GoldilocksProver.accelerate(FibSmallProver)(options, hasher)
     trace = build_fib_trace(F64, 2 << args.log2, device="cuda")
     prover.prove(trace)

@@ -54,23 +54,16 @@ import torch
 from ..air.air import EvaluationFrame
 from ..air.divisor import ConstraintDivisor
 from ..air.proof import FriProof, FriProofLayer, OodFrame, Proof, Queries
-from ..crypto.hashers import (
-    Blake3_192,
-    Blake3_256,
-    Rp64_256,
-    RpJive64_256,
-    Sha3_256,
-)
+from ..crypto.hashers import HASHERS
 from ..crypto.merkle import MerkleTree
 from ..fri import FriOptions, fold_positions
 from ..math import ntt as host_ntt
 from ..math.fields import F64, Field
-from ..ops import blake3 as b3
 from ..ops import device_coin as dc
 from ..ops import goldilocks as gl
-from ..ops import jive
-from ..ops import sha3 as s3
+from ..ops.device_hashers import DEVICE_HASHERS, DeviceHasher
 from ..ops.torch_ops import TorchOps
+from ..ops.words import rows_from_u64
 from ..utils import tracing
 from . import Prover
 from .channel import ProverChannel
@@ -86,31 +79,20 @@ _FRI_FUSE_LIMIT_F64 = 1 << 22
 _RESIDENT_LIMIT_F64 = 1 << 22
 # BatchingMethod -> device draw mode (air/src/options.rs:479-505)
 _BATCH_NAMES_F64 = {0: "linear", 1: "algebraic", 2: "horner"}
-# the hashers with a device coin (winterfell_tpu/prover/device.py:974-997):
-# every f64 hasher but RpJive64_256
-_FRI_COIN_KINDS_F64 = {Rp64_256: "rp64_256", Blake3_256: "blake3_256",
-                       Blake3_192: "blake3_192", Sha3_256: "sha3_256"}
 # the byte hashers' OOD reseed hashes one row on the device; the resident
 # route takes it only within one BLAKE3 chunk (device.py:1111-1118)
 _OOD_BYTES_LIMIT = 1024
 
 
-def _f64_hasher_entry(hasher):
-    """(kind, row-hash fn, Merkle-levels fn, digest words) of each device
-    hasher of the f64 prover (winterfell_tpu/prover/device.py:690-710): kind
-    "field" hashes element rows in the field, with (m, 4) int64 digests;
-    kind "bytes" hashes the canonical little-endian element bytes as u32
-    words, with (m, digest words) int32 digests."""
-    return {
-        Rp64_256: ("field", gl.rp64_hash_rows, gl.merkle_levels_rp64, 4),
-        RpJive64_256: ("field", jive.jive_hash_rows, jive.jive_merkle_levels,
-                       4),
-        Blake3_256: ("bytes", b3.blake3_hash_words, b3.blake3_merkle_levels,
-                     8),
-        Blake3_192: ("bytes", b3.blake3_hash_words, b3.blake3_merkle_levels,
-                     6),
-        Sha3_256: ("bytes", s3.sha3_hash_words, s3.sha3_merkle_levels, 8),
-    }[hasher]
+def _device_hasher(hasher) -> DeviceHasher:
+    """The device record of an f64 hasher (``ops/device_hashers.py``); any
+    other hasher fails the JAX GoldilocksProver's assertion."""
+    h = DEVICE_HASHERS.get(getattr(hasher, "name", None))
+    if h is None or HASHERS[h.name] is not hasher:
+        raise AssertionError(
+            "GoldilocksProver requires a Rp64_256, RpJive64_256, BLAKE3 or "
+            "SHA3 hasher (device row hashing)")
+    return h
 
 
 def resolve_device(device) -> torch.device:
@@ -307,12 +289,13 @@ def _boundary_divisor_inv(xs, a: int, b0: int):
     return gl.gl_batch_inv(gl.gl_sub(gl.gl_pow_const(xs, a), gl.const(b0)))
 
 
-def _hash_rows_bytes(rows_2d, psize: int, hash_fn, dw: int):
+def _hash_rows_bytes(rows_2d, psize: int, h: DeviceHasher):
     """Byte-hasher (BLAKE3, SHA3) row hashing of (m, k) element rows with
     PartitionOptions column chunking: each chunk's little-endian bytes are
     hashed, the chunk digests combined with merge_many = the hash of their
     concatenated bytes (winterfell_tpu/prover/device.py:671-687)."""
-    words, byte_len = b3.rows_from_u64(rows_2d.contiguous())
+    hash_fn, dw = h.hash_rows, h.digest_words
+    words, byte_len = rows_from_u64(rows_2d.contiguous())
     k = rows_2d.shape[1]
     if psize >= k:
         return hash_fn(words, byte_len, dw)
@@ -328,9 +311,10 @@ def _hash_rows_part(rows_2d, psize: int, hasher):
     """Row hashing with PartitionOptions column chunking: each chunk of psize
     base columns is hashed separately and the chunk digests combined with
     merge_many (row_matrix.rs:184-229)."""
-    kind, hash_fn, _, dw = _f64_hasher_entry(hasher)
-    if kind == "bytes":
-        return _hash_rows_bytes(rows_2d, psize, hash_fn, dw)
+    h = _device_hasher(hasher)
+    if h.kind == "bytes":
+        return _hash_rows_bytes(rows_2d, psize, h)
+    hash_fn = h.hash_rows
     k = rows_2d.shape[1]
     if psize >= k:
         return hash_fn(rows_2d)
@@ -345,7 +329,7 @@ def _commit_pipeline(matrix, n: int, offset: int, blowup: int, psize: int,
     polys = gl.ntt_interpolate(matrix, n)
     lde = gl.ntt_evaluate_with_offset(polys, n, offset, blowup)
     leaves = _hash_rows_part(lde.reshape(lde.shape[0], -1), psize, hasher)
-    return polys, lde, leaves, _f64_hasher_entry(hasher)[2](leaves)
+    return polys, lde, leaves, _device_hasher(hasher).merkle_levels(leaves)
 
 
 def _comp_commit_pipeline(ce_column, ce: int, n: int, offset: int,
@@ -359,7 +343,7 @@ def _comp_commit_pipeline(ce_column, ce: int, n: int, offset: int,
         0, 1).contiguous()
     lde = gl.ntt_evaluate_with_offset(comp_columns, n, offset, blowup)
     leaves = _hash_rows_part(lde.reshape(lde.shape[0], -1), psize, hasher)
-    return comp_columns, lde, leaves, _f64_hasher_entry(hasher)[2](leaves)
+    return comp_columns, lde, leaves, _device_hasher(hasher).merkle_levels(leaves)
 
 
 def _fri_layer_commit(evaluations, n_fold: int, hasher):
@@ -370,7 +354,7 @@ def _fri_layer_commit(evaluations, n_fold: int, hasher):
     transposed = evaluations.reshape(n_fold, rows, d).transpose(0, 1).contiguous()
     leaves = _hash_rows_part(transposed.reshape(rows, n_fold * d),
                              n_fold * d, hasher)
-    return transposed, leaves, _f64_hasher_entry(hasher)[2](leaves)
+    return transposed, leaves, _device_hasher(hasher).merkle_levels(leaves)
 
 
 def _fri_phase_body(deep_evals, seed, merge, draw, hasher, n_fold: int,
@@ -460,12 +444,7 @@ class GoldilocksProver(Prover):
         pub_inputs = self.get_pub_inputs(trace)
         air = self.air_class(trace.info(), pub_inputs, self.options)
         assert air.base is F64, "GoldilocksProver requires the f64 base field"
-        try:
-            kind = _f64_hasher_entry(self.hasher)[0]
-        except KeyError:
-            raise AssertionError(
-                "GoldilocksProver requires a Rp64_256, RpJive64_256, BLAKE3 "
-                "or SHA3 hasher (device row hashing)") from None
+        h = _device_hasher(self.hasher)
         assert not air.trace_info.is_multi_segment, (
             "GoldilocksProver proves single-segment traces")
         channel = ProverChannel(air, air.pub_inputs_to_elements(), self.hasher)
@@ -478,13 +457,13 @@ class GoldilocksProver(Prover):
         rem_n = lde_size // fri_opts.folding_factor**n_layers
         # the JAX package's dispatch (winterfell_tpu/prover/device.py:
         # 1105-1118) for one segment and no mesh
-        coin_kind = _FRI_COIN_KINDS_F64.get(self.hasher)
+        coin_kind = h.name if h.coin else None
         ood_bytes = (2 * (air.trace_info.width
                           + air.context.num_constraint_composition_columns())
                      * air.ext_field.degree * 8)
         if (_RESIDENT_ON_F64 and coin_kind is not None and n_layers > 0
                 and rem_n >= 2 and lde_size <= _RESIDENT_LIMIT_F64
-                and (kind == "field" or ood_bytes <= _OOD_BYTES_LIMIT)):
+                and (h.kind == "field" or ood_bytes <= _OOD_BYTES_LIMIT)):
             return self._prove_resident(air, trace, channel, phases, fri_opts,
                                         n_layers, rem_n, coin_kind)
         return self._prove_phased(air, trace, channel, phases, fri_opts,
@@ -553,7 +532,8 @@ class GoldilocksProver(Prover):
         # 6 ----- FRI layers -------------------------------------------------
         n_fold = fri_opts.folding_factor
         fri_layers = []  # (tree, transposed (rows, N, d))
-        coin_kind = _FRI_COIN_KINDS_F64.get(self.hasher)
+        h = _device_hasher(self.hasher)
+        coin_kind = h.name if h.coin else None
         if (_FUSED_FRI_ON and coin_kind is not None and n_layers > 0
                 and rem_n >= 2 and lde_size <= _FRI_FUSE_LIMIT_F64):
             # the whole commit phase with the coin on the device; the roots
@@ -688,7 +668,7 @@ class GoldilocksProver(Prover):
         n_t = air.context.num_transition_constraints
         n_b = air.context.num_assertions
         hasher = self.hasher
-        kind, row_hash, _, dw = _f64_hasher_entry(hasher)
+        h = _device_hasher(hasher)
         merge, draw = dc.coin_bundle(coin_kind, d, "f64")
         draw_k = dc.make_draw_k(draw)
         method_c = _BATCH_NAMES_F64[int(air.options.batching_constraints)]
@@ -716,10 +696,10 @@ class GoldilocksProver(Prover):
         merged = torch.cat([main_pair[:, 0], comp_pair[:, 0],
                             main_pair[:, 1], comp_pair[:, 1]])
         flat = merged.reshape(1, -1)
-        if kind == "field":
-            ood_digest = row_hash(flat)[0]
+        if h.kind == "field":
+            ood_digest = h.hash_rows(flat)[0]
         else:  # the one-row hash of the elements' bytes (device.py:1515-1520)
-            ood_digest = row_hash(*b3.rows_from_u64(flat), dw)[0]
+            ood_digest = h.hash_rows(*rows_from_u64(flat), h.digest_words)[0]
         seed = merge(seed, ood_digest)
         # 5 -- DEEP composition, 6 -- FRI layers
         deep_all, _ = draw_k(seed, w + num_cols, method_d)
