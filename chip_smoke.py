@@ -18,11 +18,19 @@ Phases, each printed with its elapsed seconds as it ends:
    of 1 ... 2^21 leaves; the byte coins' draw kernels with rejected
    candidates planted; the Rescue kernels on random values and on corner
    sets (0, 1, 2^32 - 1, 2^32, 2^63, p - 2^32, p - 2, p - 1), the byte
-   hashes on random words and all-ones words.
+   hashes on random words and all-ones words. The f128 kernels: B13 add,
+   subtract and multiply at (2^21,) over random values and every pair of an
+   f128 corner set (0, 1, p - 1, values just under 2^128 reduced, products
+   whose high half is near 2^128 mod p), at the operand layouts the f128
+   prover passes and split above a lowered INDEX_LIMIT; B13n (whole NTTs of
+   its stages) at sizes 2 ... 2^21; the f128 draw of each byte coin with
+   rejected candidates planted.
 3. card vs CPU: a fib proof at trace 2^10 with each f64 hasher on the card,
    on each route the JAX dispatch gives it (resident, phased with fused
    FRI, phased with the host coin; RpJive64_256 only the last), against the
-   CPU's bytes; verify() accepts each.
+   CPU's bytes; verify() accepts each. The same for the f128 prover
+   (Blake3_256): fib at trace 2^10 (no extension) and 2^8 (quadratic), the
+   Rescue chain at trace 2^8.
 4. main path: fib over f64, trace 2^18, bench.py's options — with Rp64_256
    (bench.py's workload) and with Blake3_256 — on the resident and the
    phased route: per route one warm-up, its resident device run under
@@ -33,6 +41,12 @@ Phases, each printed with its elapsed seconds as it ends:
    launched, and K2 at most 30 times per Rp64 prove. Then one 2^18 prove,
    verified, with the CLI's default options (Blake3_256, grinding 16, no
    extension) and one each with Blake3_192, Sha3_256 and RpJive64_256.
+   Then the two f128 paths at trace 2^18, each timed as above with its
+   kernels' launches and peak memory, verified: bench.py's rescue_f128 (the
+   Rescue chain, Blake3_256, ProofOptions(42, 4, 16, NONE, 8, 31), LDE
+   2^20: the resident route, its device run under the sync check) and the
+   CLI's fib (Blake3_256, ProofOptions(28, 8, 16, NONE, 8, 31), LDE 2^21:
+   the phased route with fused FRI); and one Rescue prove with Sha3_256.
 5. kernel times at the main path's shapes against their bounds: device time
    per launch from launches replayed in a CUDA graph, beside the time per
    call when the wrapper is called back to back from Python; the whole
@@ -94,6 +108,20 @@ ALU_PER_BLAKE3 = 7 * 8 * 8 + 8
 # (one LOP3 per half: 50), ρ's 24 rotations (2 SHF each: 48), χ's 25
 # lanes (a ^ (~b & c), one LOP3 per half: 50), ι (2): 180 a round, ×24.
 ALU_PER_KECCAK = 24 * 180
+# B13 / B13n: one f128 product is four 64×64→128-bit partial products and
+# three 64×46-bit products of the two folds by 2^128 mod p, each 8 IMADs
+# (4 partial products of 2): 56. An add or subtract multiplies nothing.
+IMAD_PER_F128_MUL = 7 * 8
+P128 = 2**128 - 45 * 2**40 + 1
+PHI128 = 45 * 2**40 - 1  # 2^128 mod p
+# canonical f128 corner values: 0, 1, 2, p - 1, p - 2; 2^128 - 1 and 2^128
+# - 2 reduced; the word edges; products of pairs that reach 2^128 (2^127·2,
+# 2^100·2^28, 2^96·2^32, (2^64 - 1)(2^64 + 1)), whose high half is then
+# near 2^128 mod p; and p - 2^128 mod p
+F128_CORNERS = [0, 1, 2, P128 - 1, P128 - 2, (2**128 - 1) % P128,
+                (2**128 - 2) % P128, 2**64 - 1, 2**64, 2**64 + 1, 2**127,
+                2**100, 2**28, 2**96, 2**32, PHI128, PHI128 + 1,
+                P128 - PHI128, P128 - 2**64]
 
 
 def log(msg: str) -> None:
@@ -124,6 +152,38 @@ def _corner_field(shape, device):
     j = np.arange(shape[1])[None, :]
     idx = np.where(r < len(c), r, 3 * r + 5 * j) % len(c)
     return torch.from_numpy(c[idx].view(np.int64)).to(device)
+
+
+def _rng_f128(rng, shape, device):
+    """Random canonical f128 elements as a (*shape, 2) tensor of (lo, hi)
+    words: a high word of all ones (the only one where a value can reach
+    p) is lowered by one."""
+    n = int(np.prod(shape, dtype=np.int64))
+    w = rng.integers(0, 2**64, size=(n, 2), dtype=np.uint64)
+    w[:, 1] = np.where(w[:, 1] == np.uint64(2**64 - 1),
+                       np.uint64(2**64 - 2), w[:, 1])
+    return torch.from_numpy(w.view(np.int64).reshape(tuple(shape) + (2,))).to(
+        device)
+
+
+def _f128_of(values, device):
+    from winterfell_tpu_torch.ops import f128
+
+    return f128.to_device(np.array(values, dtype=object), device)
+
+
+def _ntt_plain(x, n: int, inverse: bool):
+    """The f128 NTT of ops/f128.py:_ntt_core with every stage the plain
+    version of B13n."""
+    from winterfell_tpu_torch.ops import f128
+
+    perm, tw = f128.ntt_plan(n, inverse, x.device)
+    y = x.index_select(0, perm).reshape(n, -1, 2)
+    half = 1
+    while half < n:
+        y = f128.ntt_stage_plain(y, tw, half)
+        half *= 2
+    return y.reshape(x.shape)
 
 
 def _max_abs_err(a, b) -> float:
@@ -273,6 +333,24 @@ def _bound_jive(perms: int, nbytes: int):
     return _bound(perms * IMAD_PER_JIVE, nbytes)
 
 
+def _bound_f128(x, y, mul: bool):
+    """B13 on x ∘ y: each element of the operands read once (a broadcast
+    operand's own, an int none) and each result written once, 16 bytes each;
+    56 IMADs per product, none for an add or subtract."""
+    y_shape, y_numel = ((y.shape[:-1], y.numel() // 2)
+                        if isinstance(y, torch.Tensor) else ((), 0))
+    n = torch.broadcast_shapes(x.shape[:-1], y_shape).numel()
+    return _bound(n * IMAD_PER_F128_MUL if mul else 0,
+                  (x.numel() // 2 + y_numel + n) * 16)
+
+
+def _bound_ntt_stage(n: int, cols: int, half: int):
+    """One B13n stage: n/2·cols butterflies of one product each; every
+    element read and written once, the stage's half twiddles read once."""
+    return _bound(n // 2 * cols * IMAD_PER_F128_MUL,
+                  (2 * n * cols + half) * 16)
+
+
 def _check_syncs(prover, on: bool) -> None:
     """With on, the prover's resident device run (_resident_run) runs under
     torch.cuda.set_sync_debug_mode("error"): any host synchronisation there
@@ -294,10 +372,10 @@ def _check_syncs(prover, on: bool) -> None:
 
 
 def _kernel_modules():
-    from winterfell_tpu_torch.ops import (blake3, device_coin, field_kernels,
-                                          jive, rescue, sha3)
+    from winterfell_tpu_torch.ops import (blake3, device_coin, f128,
+                                          field_kernels, jive, rescue, sha3)
 
-    return (rescue, field_kernels, device_coin, blake3, sha3, jive)
+    return (rescue, field_kernels, device_coin, blake3, sha3, jive, f128)
 
 
 def _launches():
@@ -341,14 +419,18 @@ def main() -> int:
         build_fib_trace,
         compute_fib_term,
     )
-    from winterfell_tpu_torch.math.fields import F64
-    from winterfell_tpu_torch.ops import _build, device_coin, field_kernels
+    from winterfell_tpu_torch.math.fields import F64, F128
+    from winterfell_tpu_torch.examples import fibonacci as fib128
+    from winterfell_tpu_torch.examples import rescue as rescue128
+    from winterfell_tpu_torch.ops import _build, device_coin, f128, field_kernels
     from winterfell_tpu_torch.ops import goldilocks as gl
     from winterfell_tpu_torch.ops import blake3, jive, rescue, sha3
     from winterfell_tpu_torch.ops.device_hashers import DEVICE_HASHERS
     from winterfell_tpu_torch.ops.words import rows_from_u64 as words_of
     from winterfell_tpu_torch.prover import device as prover_device
+    from winterfell_tpu_torch.prover import device_limb
     from winterfell_tpu_torch.prover.device import GoldilocksProver
+    from winterfell_tpu_torch.prover.device_limb import F128Prover
     from winterfell_tpu_torch.utils import tracing
     from winterfell_tpu_torch.verifier import verify
 
@@ -362,8 +444,9 @@ def main() -> int:
     # entry points themselves take CUDA tensors only
     k3 = gl.gl_mul if REHEARSAL else field_kernels.gl_mul_kernel
     draw_k = device_coin.draw_plain if REHEARSAL else device_coin.draw_kernel
-    byte_draw = ((lambda kind, *args: device_coin.draw_plain(*args, kind))
-                 if REHEARSAL else device_coin.byte_draw_kernel)
+    byte_draw = ((lambda kind, *args: device_coin.draw_plain(
+        *args[:5], kind, *args[5:])) if REHEARSAL
+        else device_coin.byte_draw_kernel)
 
     # 1 ----- device ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -386,7 +469,10 @@ def main() -> int:
     # library, built from native/blake3.c with the C compiler
     if not native.available():
         raise AssertionError("the native BLAKE3 library did not build")
-    log("native BLAKE3 built and loaded")
+    # and the Rescue chain's trace builder of the f128 paths (native/f128.c)
+    if not native.f128_available():
+        raise AssertionError("the native f128 library did not build")
+    log("native BLAKE3 and f128 libraries built and loaded")
     phase("1 device", t0)
 
     # 2 ----- kernels against their plain versions, on the card -------------
@@ -599,6 +685,87 @@ def main() -> int:
         raise AssertionError(f"gl_mul: {splits} launches for a product above "
                              "the lowered INDEX_LIMIT")
     log(f"K3 above INDEX_LIMIT: {splits} launches equal the plain product")
+
+    # B13: the f128 add, subtract and multiply at (LDE,) over random values,
+    # the first rows every ordered pair of the corner set; then the operand
+    # layouts the f128 prover passes
+    pairs = [(x, y) for x in F128_CORNERS for y in F128_CORNERS]
+    a128 = _rng_f128(rng, (big,), dev)
+    b128 = _rng_f128(rng, (big,), dev)
+    a128[: len(pairs)] = _f128_of([x for x, _ in pairs], dev)
+    b128[: len(pairs)] = _f128_of([y for _, y in pairs], dev)
+    ops128 = {"add": (f128.f128_add, f128.add_plain, lambda x, y: x + y),
+              "sub": (f128.f128_sub, f128.sub_plain, lambda x, y: x - y),
+              "mul": (f128.f128_mul, f128.mul_plain, lambda x, y: x * y)}
+    for name, (op, plain, oracle) in ops128.items():
+        got = op(a128, b128)
+        check(f"f128_{name}", got, plain(a128, b128), (big,))
+        head = f128.to_ints(got[: len(pairs)])
+        if [int(v) for v in head] != [oracle(x, y) % P128 for x, y in pairs]:
+            raise AssertionError(f"f128_{name}: corner results differ from "
+                                 "the Python-int oracle")
+    ext128 = _rng_f128(rng, (big // 2, 2), dev)
+    col128 = _rng_f128(rng, (big // 2,), dev)
+    blk128 = _rng_f128(rng, (big // 64, 2, 16, 2), dev)
+    tw128 = _rng_f128(rng, (1, 16, 1), dev)
+    deep128 = _rng_f128(rng, (2, 3, 2, 3, 2, 3, 2, 2), dev).permute(
+        *range(7, -1, -1), 8)
+    layouts128 = [("int", ext128, 12345), ("int near p", ext128, P128 - 1),
+                  ("column", ext128, col128[:, None]),
+                  ("ext coeff", ext128, ext128[0][None]),
+                  ("butterfly", blk128[:, 1], tw128),
+                  ("component", ext128[..., 0, :], ext128[..., 1, :]),
+                  ("8 dims", deep128, deep128[..., :1, :])]
+    for lname, x, y in layouts128:
+        for name, (op, plain, _) in ops128.items():
+            check(f"f128_{name}", op(x, y), plain(x, y),
+                  (lname, tuple(x.shape)))
+    # above the 32-bit offsets: a product split into several launches
+    field_kernels.INDEX_LIMIT = 1 << 16
+    try:
+        before = f128.LAUNCHES["f128_mul"]
+        got = f128.f128_mul(ext128, col128[:, None])
+        splits = f128.LAUNCHES["f128_mul"] - before
+    finally:
+        field_kernels.INDEX_LIMIT = limit
+    check("f128_mul", got, f128.mul_plain(ext128, col128[:, None]),
+          ("split", splits))
+    if not REHEARSAL and splits < 2:
+        raise AssertionError(f"f128_mul: {splits} launches for a product "
+                             "above the lowered INDEX_LIMIT")
+    log(f"B13 f128 add, sub and mul equal their plain versions (and the "
+        f"oracle on {len(pairs)} corner pairs; {splits} launches above "
+        "INDEX_LIMIT)")
+    # B13n: whole NTTs of kernel stages against plain stages, both ways
+    for n_, cols in ((2, 1), (8, 3), (1024, 4), (1 << 16, 2),
+                     (big // 2, 4), (big, 2)):
+        x = _rng_f128(rng, (n_, cols), dev)
+        for inverse in (False, True):
+            got = f128._ntt_core(x, n_, inverse)
+            check("f128_ntt_stage", got, _ntt_plain(x, n_, inverse),
+                  (n_, cols, inverse))
+    log("B13n f128 NTT stages equal their plain version (2 ... 2^%d rows)"
+        % (big.bit_length() - 1))
+    # the f128 draws of the byte coins, rejected candidates planted (an
+    # element >= p: 2^128 - 1)
+    for coin in ("blake3_256", "blake3_192", "sha3_256"):
+        dw = DEVICE_HASHERS[coin].digest_words
+        name = DEVICE_HASHERS[coin].draw + "_f128"
+        _, next_byte = device_coin.byte_coin_ops(coin)
+        for k, d, reject in ((1, 1, ()), (5, 2, ()), (7, 1, ()),
+                             (3, 2, (1,)), (2, 1, (0, 1)), (4, 2, (0, 2))):
+            seed_w = _words(rng, (dw,), dev)
+            cands = next_byte(seed_w, 0, k).clone()
+            for j in reject:
+                cands[j, :4] = -1
+            got_e, got_c = byte_draw(coin, cands, seed_w, 0, k, d, "f128")
+            want_e, want_c = device_coin.draw_plain(cands, seed_w, 0, k, d,
+                                                    coin, "f128")
+            check(name, torch.cat([got_e.reshape(-1), got_c]),
+                  torch.cat([want_e.reshape(-1), want_c]),
+                  (coin, k, d, reject))
+    log("the byte coins' f128 draw kernels equal their plain version, "
+        "rejected candidates included")
     phase("2 kernels", t0)
 
     # 3 ----- card vs CPU, every hasher on each of its routes ----------------
@@ -641,6 +808,48 @@ def main() -> int:
         log(f"fib 2^{log2_cmp} {hasher.name}: card bytes == CPU bytes on "
             f"{', '.join(routes)} ({len(cpu)} B), verified")
     prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
+    # the f128 prover (Blake3_256) on each of its routes: fib at two sizes,
+    # with and without the extension, and the Rescue chain
+    defaults128 = (device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON)
+
+    def routed128(route: str) -> None:
+        device_limb._RESIDENT_ON = route == "resident"
+        device_limb._FUSED_FRI_ON = route != "host"
+
+    fib_opts = {ext: ProofOptions(28, 8, 0, getattr(FieldExtension, ext), 8,
+                                  31) for ext in ("NONE", "QUADRATIC")}
+    rescue_opts = ProofOptions(42, 4, 0, FieldExtension.NONE, 8, 31)
+    # log2 trace rows: fib without and with the extension, Rescue (each with
+    # a FRI layer, so the routes differ)
+    lf, lq, lr = (6, 6, 6) if REHEARSAL else (log2_cmp, log2_cmp - 2,
+                                             log2_cmp - 2)
+    f128_cases = [
+        ("fib", fib128.FibProver, fib128.FibAir, fib_opts["NONE"],
+         lambda d: fib128.build_fib_trace(F128, 2 << lf, device=d)),
+        ("fib", fib128.FibProver, fib128.FibAir, fib_opts["QUADRATIC"],
+         lambda d: fib128.build_fib_trace(F128, 2 << lq, device=d)),
+        ("rescue", rescue128.RescueProver, rescue128.RescueAir, rescue_opts,
+         lambda d: rescue128.build_rescue_trace((1, 2), 1 << (lr - 4)))]
+    for what, prover_cls, air_cls, opts, make_trace in f128_cases:
+        Prover128 = F128Prover.accelerate(prover_cls)
+        cpu_trace = make_trace("cpu")
+        host = Prover128(opts, Blake3_256, device="cpu")
+        cpu = host.prove(cpu_trace).to_bytes()
+        verify(air_cls, Proof.from_bytes(cpu), host.get_pub_inputs(cpu_trace),
+               Blake3_256)
+        for route in coin_routes:
+            routed128(route)
+            proof = Prover128(opts, Blake3_256, device=dev).prove(
+                make_trace(dev))
+            check_route(route, f"f128 {what} on {dev}")
+            if proof.to_bytes() != cpu:
+                raise AssertionError(f"f128 {what}: {route} proof bytes on "
+                                     f"{dev} differ from the CPU's")
+        ext_name = opts.field_extension.name
+        log(f"f128 {what} trace {cpu_trace.length} ({ext_name}): card bytes "
+            f"== CPU bytes on {', '.join(coin_routes)} ({len(cpu)} B), "
+            "verified")
+    device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
     phase("3 card vs cpu", t0)
 
     # 4 ----- the main path at full size, both routes ------------------------
@@ -652,19 +861,18 @@ def main() -> int:
         raise AssertionError("trace's last term differs from compute_fib_term")
     runs = {}  # (hasher name, route) -> kernel launches of one prove
 
-    def timed_path(hasher, route: str, opts):
+    def timed_path(prover, route: str, key, label: str, air, pub, tr):
         """One warm-up (its resident device run under the sync check,
         untimed), three proves timed free-running (phase barriers off, as
-        bench.py times; the first one's launches counted), one more with a
-        barrier at every phase mark for the card's time per phase. All
-        proofs equal and verified."""
-        routed(route)
-        prover = Prover(opts, hasher, device=dev)
+        bench.py times; the first one's launches counted under ``key``), one
+        more with a barrier at every phase mark for the card's time per
+        phase. All proofs equal and verified; ``route`` is the route the
+        proves must take."""
         _check_syncs(prover, not REHEARSAL and route == "resident")
         tracing.set_phase_sync(True)
-        warm = prover.prove(trace)
-        check_route(route, hasher.name)
-        verify(FibSmallAir, warm, result, hasher)
+        warm = prover.prove(tr)
+        check_route(route, label)
+        verify(air, warm, pub, prover.hasher)
         _check_syncs(prover, False)
         if not REHEARSAL:
             torch.cuda.reset_peak_memory_stats()
@@ -673,33 +881,30 @@ def main() -> int:
         for i in range(3):
             _reset_launches()
             t = time.perf_counter()
-            proof = prover.prove(trace)
+            proof = prover.prove(tr)
             if not REHEARSAL:
                 torch.cuda.synchronize()
             walls.append(time.perf_counter() - t)
             if i == 0:
-                runs[hasher.name, route] = _launches()
+                runs[key] = _launches()
             if proof.to_bytes() != warm.to_bytes():
-                raise AssertionError(f"{hasher.name} {route}: proves gave "
-                                     "other bytes")
+                raise AssertionError(f"{label}: proves gave other bytes")
         peak = 0 if REHEARSAL else torch.cuda.max_memory_allocated()
         tracing.set_phase_sync(True)
         t = time.perf_counter()
-        if prover.prove(trace).to_bytes() != warm.to_bytes():
+        if prover.prove(tr).to_bytes() != warm.to_bytes():
             raise AssertionError("the phase-split prove gave other bytes")
         split_wall = time.perf_counter() - t
         spans = tracing.last_spans()
-        log(f"{hasher.name} {route}: fib 2^{log2_trace} prove wall s (phase "
-            f"barriers off): min {min(walls):.4f} median "
-            f"{statistics.median(walls):.4f} runs "
+        log(f"{label}: prove wall s (phase barriers off): min "
+            f"{min(walls):.4f} median {statistics.median(walls):.4f} runs "
             f"{[round(w, 4) for w in walls]}")
-        log(f"{hasher.name} {route}: phases (one more prove, barriers on, "
-            f"wall {split_wall:.4f} s; ms): " + ", ".join(
+        log(f"{label}: phases (one more prove, barriers on, wall "
+            f"{split_wall:.4f} s; ms): " + ", ".join(
                 f"{s['name']} {1000 * s['seconds']:.1f}" for s in spans))
-        used = {k: v for k, v in runs[hasher.name, route].items() if v}
-        log(f"{hasher.name} {route}: peak device memory "
-            f"{peak / 2**30:.3f} GiB; launches per prove {used}; proof "
-            f"{len(warm.to_bytes())} B, verified")
+        used = {k: v for k, v in runs[key].items() if v}
+        log(f"{label}: peak device memory {peak / 2**30:.3f} GiB; launches "
+            f"per prove {used}; proof {len(warm.to_bytes())} B, verified")
         return warm.to_bytes()
 
     def one_prove(hasher, opts, what: str):
@@ -729,8 +934,14 @@ def main() -> int:
     # bench.py's default workload (Rp64_256) and the same with Blake3_256,
     # each on the resident and the phased (fused FRI) route
     for hasher in (Rp64_256, Blake3_256):
-        by_route = {route: timed_path(hasher, route, options)
-                    for route in ("resident", "fused")}
+        by_route = {}
+        for route in ("resident", "fused"):
+            routed(route)
+            by_route[route] = timed_path(
+                Prover(options, hasher, device=dev), route,
+                (hasher.name, route),
+                f"{hasher.name} {route}: fib 2^{log2_trace}", FibSmallAir,
+                result, trace)
         if by_route["resident"] != by_route["fused"]:
             raise AssertionError(f"{hasher.name}: the phased proof differs "
                                  "from the resident")
@@ -758,6 +969,65 @@ def main() -> int:
         one_prove(hasher, options, route)
         must_launch((hasher.name, route))
     prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
+
+    # the f128 paths at the same trace size: bench.py's rescue_f128 (the
+    # Rescue chain, 16 rows per hash, LDE 2^20 on the card: the resident
+    # route) and the CLI's fib (LDE 2^21: phased with fused FRI); every
+    # kernel of the f128 prover must have launched
+    f128_kernels = ("f128_add", "f128_sub", "f128_mul", "f128_ntt_stage")
+
+    def must_launch128(key, hasher_name: str) -> None:
+        h = DEVICE_HASHERS[hasher_name]
+        for name in f128_kernels + tuple(
+                k for k in h.launches if k not in ("gl_mul", h.draw)) + (
+                h.draw + "_f128",):
+            if not REHEARSAL and runs[key][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the "
+                                     f"{key} prove")
+        if not REHEARSAL and runs[key]["gl_mul"]:
+            raise AssertionError(f"the {key} prove launched K3")
+
+    device_limb._RESIDENT_ON = device_limb._FUSED_FRI_ON = True
+    tb = time.perf_counter()
+    rtrace = rescue128.build_rescue_trace((42, 43), n // 16)
+    log(f"Rescue chain trace of {n} rows (native/f128.c) built in "
+        f"{time.perf_counter() - tb:.2f} s")
+    rescue_f128 = ProofOptions(42, 4, 16, FieldExtension.NONE, 8, 31)
+    Rescue128 = F128Prover.accelerate(rescue128.RescueProver)
+    rprover = Rescue128(rescue_f128, Blake3_256, device=dev)
+    rpub = rprover.get_pub_inputs(rtrace)
+    timed_path(rprover, "resident", ("rescue_f128", "resident"),
+               f"rescue_f128 resident: Rescue chain, trace 2^{log2_trace}",
+               rescue128.RescueAir, rpub, rtrace)
+    must_launch128(("rescue_f128", "resident"), "blake3_256")
+    ftrace = fib128.build_fib_trace(F128, 2 * n, device=dev)
+    fpub = ftrace.get(1, n - 1)
+    if fpub != fib128.compute_fib_term(F128, 2 * n):
+        raise AssertionError("the f128 fib trace's last term differs from "
+                             "compute_fib_term")
+    level_fuse = device_limb._LEVEL_FUSE
+    if REHEARSAL:  # the card's LDE (2^21) is above the resident limit
+        device_limb._LEVEL_FUSE = big // 2
+    timed_path(F128Prover.accelerate(fib128.FibProver)(cli, Blake3_256,
+                                                       device=dev),
+               "fused", ("fib_cli_f128", "fused"),
+               f"fib_cli_f128 fused: fib, trace 2^{log2_trace}",
+               fib128.FibAir, fpub, ftrace)
+    device_limb._LEVEL_FUSE = level_fuse
+    must_launch128(("fib_cli_f128", "fused"), "blake3_256")
+    # one Rescue prove with Sha3_256: the SHA3 coin's f128 draw
+    tracing.set_phase_sync(True)
+    _reset_launches()
+    t = time.perf_counter()
+    proof = Rescue128(rescue_f128, Sha3_256, device=dev).prove(rtrace)
+    wall = time.perf_counter() - t
+    check_route("resident", "rescue_f128 sha3_256")
+    runs["rescue_f128_sha3", "resident"] = _launches()
+    verify(rescue128.RescueAir, proof, rpub, Sha3_256)
+    must_launch128(("rescue_f128_sha3", "resident"), "sha3_256")
+    log(f"rescue_f128 sha3_256 resident: prove {wall:.4f} s (barriers on), "
+        "verified")
+    device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
     tracing.set_phase_sync(True)
     phase("4 main path", t0)
 
@@ -956,6 +1226,78 @@ def main() -> int:
          [jive_tree_entry(big), jive_tree_entry(big // 8),
           jive_tree_entry(big // 512)]),
     ]
+    # B13, B13n and the f128 draws at the f128 paths' shapes: the LDE's
+    # elements, an extension column times base elements, a Python-int
+    # constant; the first and last NTT stages of the Rescue LDE (2^20 rows,
+    # 4 columns) and the last of the fib LDE (2^21, 2); the coefficient draw
+    # of the Rescue AIR and a one-element draw
+    def f128_entry(name, x, y, shape):
+        op, plain, _ = ops128[name]
+        return entry(shape, lambda: op(x, y), lambda: plain(x, y),
+                     _bound_f128(x, y, name == "mul"))
+
+    def stage_entry(n_, cols, half):
+        x = _rng_f128(rng, (n_, cols), dev)
+        _, tw = f128.ntt_plan(n_, False, dev)
+        return entry((n_, cols, half), lambda: f128.ntt_stage(x, tw, half),
+                     lambda: f128.ntt_stage_plain(x, tw, half),
+                     _bound_ntt_stage(n_, cols, half))
+
+    def draw128_entry(coin, k, d):
+        dw = DEVICE_HASHERS[coin].digest_words
+        seed_w = _words(rng, (dw,), dev)
+        cands = device_coin.byte_coin_ops(coin)[1](seed_w, 0, k)
+        want_c = device_coin.draw_plain(cands, seed_w, 0, k, d, coin,
+                                        "f128")[1]
+        if int(want_c[0]) != k:
+            raise AssertionError(f"{coin}: a timed f128 candidate was "
+                                 "rejected")
+        return entry((k, d), lambda: byte_draw(coin, cands, seed_w, 0, k, d,
+                                               "f128"),
+                     lambda: device_coin.draw_plain(cands, seed_w, 0, k, d,
+                                                    coin, "f128"),
+                     _bound_alu(0, 4 * dw * (k + 1) + 16 * k * d + 8))
+
+    x128, y128 = _rng_f128(rng, (big,), dev), _rng_f128(rng, (big,), dev)
+    e128, c128 = (_rng_f128(rng, (big // 2, 2), dev),
+                  _rng_f128(rng, (big // 2, 1), dev))
+    r_ctx = rescue128.RescueAir(rtrace.info(), rpub, rescue_f128).context
+    r_ccs = r_ctx.num_transition_constraints + r_ctx.num_assertions
+    both128 = (("rescue_f128", "resident"), ("fib_cli_f128", "fused"))
+    f128_src = "winterfell_tpu_torch/csrc/f128.cu (f128.cuh)"
+    records128 = [
+        ("f128_add", "winterfell_tpu/ops/f128.py:161 (f128_add; jnp "
+         "program, no Pallas kernel)", f128_src,
+         [f128_entry("add", x128, y128, (big,)),
+          f128_entry("add", e128, c128, (big // 2, 2, "column"))], both128),
+        ("f128_sub", "winterfell_tpu/ops/f128.py:170 (f128_sub; jnp "
+         "program, no Pallas kernel)", f128_src,
+         [f128_entry("sub", x128, y128, (big,))], both128),
+        ("f128_mul", "winterfell_tpu/ops/f128.py:246 (f128_mul over "
+         "_mul_limbs_4x4 / _fold_256 :182-243; jnp program, no Pallas "
+         "kernel)", f128_src,
+         [f128_entry("mul", x128, y128, (big,)),
+          f128_entry("mul", e128, c128, (big // 2, 2, "column")),
+          f128_entry("mul", x128, 12345, (big, "int"))], both128),
+        ("f128_ntt_stage", "winterfell_tpu/ops/f128.py:555 (the radix-2 "
+         "stages of _ntt_small under _ntt_core :571; jnp program, no "
+         "Pallas kernel)", f128_src,
+         [stage_entry(big // 2, 4, big // 4), stage_entry(big // 2, 4, 1),
+          stage_entry(big, 2, big // 2)], both128),
+        ("blake3_coin_draw_f128", "none: port-only (the JAX coin's "
+         "lax.while_loop with limb_ext_decoder, "
+         "winterfell_tpu/ops/device_coin.py:248, :302)",
+         "winterfell_tpu_torch/csrc/blake3.cu (byte_coin.cuh)",
+         [draw128_entry("blake3_256", r_ccs, 1),
+          draw128_entry("blake3_256", 1, 1)], both128),
+        ("sha3_coin_draw_f128", "none: port-only (the JAX coin's "
+         "lax.while_loop with limb_ext_decoder, "
+         "winterfell_tpu/ops/device_coin.py:248, :302)",
+         "winterfell_tpu_torch/csrc/keccak.cu (byte_coin.cuh)",
+         [draw128_entry("sha3_256", r_ccs, 1),
+          draw128_entry("sha3_256", 1, 1)],
+         (("rescue_f128_sha3", "resident"), None)),
+    ]
     kernels = []
     for name, replaces, source, shapes in records:
         main = shapes[0]
@@ -972,6 +1314,18 @@ def main() -> int:
             "replaces": replaces, "launches": runs[hasher_name, route][name],
             "launches_phased": None if phased is None else phased[name],
             "path": [hasher_name, route],
+            "max_abs_err": errs[name], "max_diff": errs[name],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "shape": main["shape"], "shapes": shapes})
+    for name, replaces, source, shapes, (key, phased_key) in records128:
+        main = shapes[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": runs[key][name],
+            "launches_phased": (None if phased_key is None
+                                else runs[phased_key][name]),
+            "path": list(key),
             "max_abs_err": errs[name], "max_diff": errs[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

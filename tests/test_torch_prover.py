@@ -2,8 +2,9 @@
 the same proof bytes as the JAX package's host FibSmallProver on each of its
 three routes (resident, phased + fused FRI, phased + host coin) and with
 each f64 hasher (Rp64_256, Blake3_256, Blake3_192, Sha3_256, RpJive64_256),
-grinding included, each package's verify() accepts the other's proof, and
-the port picks the route the JAX package's GoldilocksProver would pick."""
+grinding, sequence assertions and periodic columns included, each
+package's verify() accepts the other's proof, and the port picks the route
+the JAX package's GoldilocksProver would pick."""
 
 import jax
 import pytest
@@ -371,7 +372,76 @@ class _PortSeqFibProver(wt.Prover):
         return (tuple(seq), int(trace.get(1, n - 1)))
 
 
+def _periodic_airs():
+    """A small f64 AIR with periodic columns, written once against each
+    package: column 0 adds a cycle-8 periodic constant each step, column 1
+    adds column 0 where a cycle-4 periodic mask is 1 (a degree-2 product
+    with a periodic value). Returns ((JAX prover class, JAX trace), (port
+    prover class, port trace), the last value of column 1)."""
+    import winterfell_tpu as jwt
+    from winterfell_tpu.prover import TraceTable as JaxTraceTable
+
+    p, ks, mask, n = F64.p, [3, 1, 4, 1, 5, 9, 2, 6], [1, 0, 1, 1], 32
+    col0, col1 = [0], [1]
+    for i in range(n - 1):
+        col0.append((col0[-1] + ks[i % 8]) % p)
+        col1.append((col1[-1] + mask[i % 4] * col0[-2]) % p)
+
+    def classes(pkg, table_cls):
+        class PeriodicAir(pkg.Air):
+            base_field = pkg.F64
+
+            def __init__(self, trace_info, pub_inputs, options):
+                degrees = [
+                    pkg.TransitionConstraintDegree.with_cycles(1, [8]),
+                    pkg.TransitionConstraintDegree.with_cycles(1, [4])]
+                self.context = pkg.AirContext.new(self.base_field, trace_info,
+                                                  degrees, 3, options)
+                self.result = pub_inputs
+
+            def pub_inputs_to_elements(self):
+                return [(self.result,)]
+
+            def evaluate_transition(self, frame, periodic_values, ops):
+                k, m = periodic_values
+                cur0, cur1 = frame.current(0), frame.current(1)
+                return [ops.sub(frame.next(0), ops.add(cur0, k)),
+                        ops.sub(frame.next(1),
+                                ops.add(cur1, ops.mul(m, cur0)))]
+
+            def get_assertions(self):
+                return [pkg.Assertion.single(0, 0, (0,)),
+                        pkg.Assertion.single(1, 0, (1,)),
+                        pkg.Assertion.single(1, self.trace_length - 1,
+                                             (self.result,))]
+
+            def get_periodic_column_values(self):
+                return [list(ks), list(mask)]
+
+        class PeriodicProver(pkg.Prover):
+            air_class = PeriodicAir
+
+            def __init__(self, options, hasher):
+                super().__init__(options)
+                self.hasher = hasher
+
+            def get_pub_inputs(self, trace):
+                return int(trace.get(1, trace.length - 1))
+
+        def trace():
+            return table_cls.init(pkg.F64, [list(col0), list(col1)])
+
+        return PeriodicProver, trace
+
+    return (classes(jwt, JaxTraceTable), classes(wt, wt.TraceTable),
+            col1[-1])
+
+
 def test_port_sequence_assertions_equal_jax_host_proof(monkeypatch):
+    """Sequence assertions (the boundary value polynomials) on the resident
+    and fused routes; then periodic columns (an AIR written for each package
+    in this file, Blake3_256) on all three routes, against the JAX host
+    prover."""
     from tests.test_device_parity import SeqFibProver, build_seqfib_trace
 
     ref = SeqFibProver(_options(_JaxOpts, "CUBIC"), Rp64_256).prove(
@@ -382,3 +452,17 @@ def test_port_sequence_assertions_equal_jax_host_proof(monkeypatch):
         prover, lambda: tfib.build_fib_trace(wt.F64, 64), monkeypatch,
         ("resident", "fused"))
     assert by_route == {"resident": ref, "fused": ref}
+
+    (jax_prover, jax_trace), (port_prover, port_trace), result = \
+        _periodic_airs()
+    ref = jax_prover(_options(_JaxOpts, "QUADRATIC"),
+                     jax_hashers.Blake3_256).prove(jax_trace()).to_bytes()
+    by_route = _prove_on_routes(
+        GoldilocksProver.accelerate(port_prover)(
+            _options(wt, "QUADRATIC"), wt.Blake3_256, device="cpu"),
+        port_trace, monkeypatch)
+    assert by_route == {route: ref for route in ROUTES}
+    verify(jax_prover.air_class, Proof.from_bytes(by_route["resident"]),
+           result, jax_hashers.Blake3_256)
+    wt.verify(port_prover.air_class, wt.Proof.from_bytes(ref), result,
+              wt.Blake3_256)

@@ -7,10 +7,11 @@ for Hopper (``csrc/``). The transcript and proof wire format are the same
 byte-exact mirrors of the reference (facebook/winterfell).
 
 This port covers the f64 path with the hashers of the JAX package's f64
-prover (Rp64_256, RpJive64_256, Blake3_256, Blake3_192, Sha3_256): the host
-prover and verifier, and :class:`prover.device.GoldilocksProver`, which runs
-on a CUDA card by default (``device="cpu"`` runs the same tensor code on the
-CPU).
+prover (Rp64_256, RpJive64_256, Blake3_256, Blake3_192, Sha3_256) and the
+f128 path with BLAKE3 and SHA3: the host prover and verifier,
+:class:`prover.device.GoldilocksProver` and
+:class:`prover.device_limb.F128Prover`, which run on a CUDA card by default
+(``device="cpu"`` runs the same tensor code on the CPU).
 """
 
 from .air import (
@@ -36,7 +37,7 @@ from .crypto.hashers import (
 )
 from .crypto.merkle import BatchMerkleProof, MerkleTree
 from .crypto.random_coin import DefaultRandomCoin
-from .math.fields import F64, Field
+from .math.fields import F64, F128, Field
 from .prover import Prover, ProverError, Trace, TraceTable
 from .verifier import AcceptableOptions, VerifierError, verify
 
@@ -54,6 +55,7 @@ __all__ = [
     "DefaultRandomCoin",
     "EvaluationFrame",
     "F64",
+    "F128",
     "Field",
     "FieldExtension",
     "HASHERS",

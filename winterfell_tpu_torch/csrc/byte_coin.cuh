@@ -1,22 +1,25 @@
 // The draw loop of the device coin for the byte hashers (BLAKE3, SHA3),
 // shared by blake3.cu and keccak.cu. It has no TPU kernel behind it: the
 // JAX package runs it as a lax.while_loop (winterfell_tpu/ops/
-// device_coin.py make_draw over byte_coin_ops and u64_ext_decoder).
+// device_coin.py make_draw over byte_coin_ops, with u64_ext_decoder for f64
+// and limb_ext_decoder for f128).
 //
 // k draws of a degree-d element under the counter semantics of the
 // reference's DefaultRandomCoin::draw (crypto/src/random/default.rs:120-139):
 // the counter increments before each candidate; candidate counter c is
 // hash(seed ‖ LE64(c)), a digest of dw little-endian u32 words; it is
-// accepted when each of its first d little-endian u64 words (words 2e and
-// 2e + 1, zero past the digest, as the reference pads a truncated digest) is
-// < p; draw i takes the first accepted candidate after draw i-1's. cands
-// holds the candidates for counters counter0 + 1 .. counter0 + t (one row
-// hash launch); past those the kernel hashes further counters itself with
-// Hash::candidate, so a rejection needs no host read. One thread does the
-// scan, so the result is the serial loop's. A draw that finds nothing in
-// 1000 candidates (the host coin's limit) stops the kernel with the counter
-// set to 2^64 - 1. Bound: latency (one thread, k digest reads); it runs once
-// per Fiat-Shamir draw.
+// accepted when each of its first d base elements, read little-endian from
+// EW words each (EW = 2 for f64, 4 for f128; zero past the digest, as the
+// reference pads a truncated digest), is < p; draw i takes the first
+// accepted candidate after draw i-1's. cands holds the candidates for
+// counters counter0 + 1 .. counter0 + t (one row hash launch); past those the
+// kernel hashes further counters itself with Hash::candidate, so a
+// rejection needs no host read. One thread does the scan, so the result is
+// the serial loop's. A draw that finds nothing in 1000 candidates (the host
+// coin's limit) stops the kernel with the counter set to 2^64 - 1. Bound:
+// latency (one thread, k digest reads); it runs once per Fiat-Shamir draw.
+// elems takes EW / 2 u64 words per element: (k, d) for f64, (k, d, 2)
+// (lo, hi) for f128.
 
 #pragma once
 
@@ -25,9 +28,23 @@
 
 namespace {
 
-constexpr uint64_t COIN_P = 0xFFFFFFFF00000001ull;
+// p as little-endian u64 words: f64 (EW = 2) and f128 (EW = 4)
+template <int EW>
+struct CoinP;
+template <>
+struct CoinP<2> {
+  __device__ static constexpr uint64_t word(int) {
+    return 0xFFFFFFFF00000001ull;
+  }
+};
+template <>
+struct CoinP<4> {
+  __device__ static constexpr uint64_t word(int l) {
+    return l == 0 ? 0xFFFFD30000000001ull : 0xFFFFFFFFFFFFFFFFull;
+  }
+};
 
-template <class Hash>
+template <class Hash, int EW = 2>
 __global__ void byte_coin_draw_kernel(const uint32_t* __restrict__ cands,
                                       const uint32_t* __restrict__ seed,
                                       uint64_t* __restrict__ elems,
@@ -50,18 +67,29 @@ __global__ void byte_coin_draw_kernel(const uint32_t* __restrict__ cands,
 #pragma unroll
         for (int q = 0; q < 8; ++q) w[q] = q < dw ? w[q] : 0;
       }
-      uint64_t v[4];
+      constexpr int L = EW / 2;  // u64 words per element
+      constexpr int E = 8 / EW;  // elements a digest can hold
+      uint64_t v[E][L];
       ok = true;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v[e] = static_cast<uint64_t>(w[2 * e]) |
-               (static_cast<uint64_t>(w[2 * e + 1]) << 32);
-        if (e < d) ok = ok && v[e] < COIN_P;
+      for (int e = 0; e < E; ++e) {
+        bool lt = false, eq = true;  // v[e] < p, from the top word down
+#pragma unroll
+        for (int l = L - 1; l >= 0; --l) {
+          v[e][l] = static_cast<uint64_t>(w[EW * e + 2 * l]) |
+                    (static_cast<uint64_t>(w[EW * e + 2 * l + 1]) << 32);
+          lt = lt || (eq && v[e][l] < CoinP<EW>::word(l));
+          eq = eq && v[e][l] == CoinP<EW>::word(l);
+        }
+        if (e < d) ok = ok && lt;
       }
       if (ok) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (e < d) elems[got * d + e] = v[e];
+        for (int e = 0; e < E; ++e)
+          if (e < d) {
+#pragma unroll
+            for (int l = 0; l < L; ++l) elems[(got * d + e) * L + l] = v[e][l];
+          }
       }
     }
     if (!ok) {

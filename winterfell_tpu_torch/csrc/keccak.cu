@@ -304,4 +304,19 @@ int wt_sha3_coin_draw(const void* cands, const void* seed, void* elems,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f128 draw: elems (k, d, 2) (lo, hi) out, d <= 2 (a candidate's 32
+// bytes hold two 16-byte elements).
+int wt_sha3_coin_draw_f128(const void* cands, const void* seed, void* elems,
+                           void* counter_out, uint64_t counter0, int64_t t,
+                           int64_t k, int d, int dw, void* stream) {
+  if (d < 1 || d > 2 || dw < 1 || dw > 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  byte_coin_draw_kernel<Sha3Coin, 4><<<1, 32, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(cands), static_cast<const uint32_t*>(seed),
+      static_cast<uint64_t*>(elems), static_cast<uint64_t*>(counter_out),
+      counter0, t, k, d, dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // extern "C"

@@ -1,5 +1,6 @@
-"""The Fibonacci example over f64 (examples/src/fibonacci/fib_small): the AIR
-of fib2 (width 2, two terms per row) over the Goldilocks field."""
+"""The Fibonacci examples (examples/src/fibonacci/): fib2 (width 2, two terms
+per row) over f128, the reference's default field, and fib_small, the same
+AIR over f64 (Goldilocks)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,8 @@ import numpy as np
 import torch
 
 from ..air import Air, AirContext, Assertion, TraceInfo, TransitionConstraintDegree
-from ..math.fields import F64, BaseField
+from ..math.fields import F64, F128, BaseField
+from ..ops import f128 as f128_ops
 from ..ops import goldilocks as gl
 from ..prover import Prover, TraceTable
 
@@ -24,19 +26,23 @@ def compute_fib_term(base: BaseField, n: int) -> int:
     return t1
 
 
-def _fib_rows(length: int, device) -> torch.Tensor:
-    """(length, 2) rows of terms (2i, 2i+1). One row step is the linear map
-    M = [[1, 1], [1, 2]]; rows [L, 2L) are M^L applied to rows [0, L), so the
-    trace is built by log-doubling with the tensor field ops."""
-    p = gl.P
-    rows = torch.tensor([[1, 1]], dtype=gl.I64, device=device)
+def _fib_rows(base: BaseField, length: int, device) -> torch.Tensor:
+    """(length, 2) rows of terms (2i, 2i+1), as (length, 2, 2) word pairs
+    over f128. One row step is the linear map M = [[1, 1], [1, 2]]; rows
+    [L, 2L) are M^L applied to rows [0, L), so the trace is built by
+    log-doubling with the tensor field ops."""
+    p = base.p
+    if base is F128:
+        add, mul = f128_ops.f128_add, f128_ops.f128_mul
+        rows = f128_ops.fill(1, (1, 2), device)
+    else:
+        add, mul = gl.gl_add, gl.gl_mul
+        rows = torch.tensor([[1, 1]], dtype=gl.I64, device=device)
     m = ((1, 1), (1, 2))  # M^L for L = current row count
     while rows.shape[0] < length:
         a, b = rows[:, 0], rows[:, 1]
-        new_a = gl.gl_add(gl.gl_mul(a, gl.const(m[0][0])),
-                          gl.gl_mul(b, gl.const(m[0][1])))
-        new_b = gl.gl_add(gl.gl_mul(a, gl.const(m[1][0])),
-                          gl.gl_mul(b, gl.const(m[1][1])))
+        new_a = add(mul(a, m[0][0]), mul(b, m[0][1]))
+        new_b = add(mul(a, m[1][0]), mul(b, m[1][1]))
         rows = torch.cat([rows, torch.stack([new_a, new_b], dim=1)])
         m = tuple(tuple(sum(m[i][k] * m[k][j] for k in range(2)) % p
                         for j in range(2)) for i in range(2))
@@ -47,20 +53,21 @@ def build_fib_trace(base: BaseField, sequence_length: int,
                     device="cpu") -> TraceTable:
     """(examples/src/fibonacci/fib2/prover.rs build_trace): row i holds terms
     (2i, 2i+1). The rows are built as a tensor on ``device`` and stored as
-    the table's native uint64 rows."""
-    assert base is F64, "the port builds f64 traces"
+    the table's native uint64 rows ((n, 2), or (n, 2, 2) word pairs over
+    f128)."""
+    assert base in (F64, F128), "the port builds f64 and f128 traces"
     assert sequence_length & (sequence_length - 1) == 0
     length = sequence_length // 2
     trace = TraceTable(base, TRACE_WIDTH, length)
-    trace.set_native_rows(gl.to_u64(_fib_rows(length, device)).copy())
+    rows = _fib_rows(base, length, device).cpu().numpy().view(np.uint64)
+    trace.set_native_rows(rows.copy())
     return trace
 
 
-class FibSmallAir(Air):
-    """fib_small: the fib2 AIR (examples/src/fibonacci/fib2/air.rs:28-68)
-    over f64 (examples/src/fibonacci/fib_small/mod.rs:12)."""
+class FibAir(Air):
+    """fib2 (examples/src/fibonacci/fib2/air.rs:28-68), over f128."""
 
-    base_field: BaseField = F64
+    base_field: BaseField = F128
 
     def __init__(self, trace_info: TraceInfo, pub_inputs, options):
         degrees = [TransitionConstraintDegree.new(1), TransitionConstraintDegree.new(1)]
@@ -88,8 +95,15 @@ class FibSmallAir(Air):
         ]
 
 
-class FibSmallProver(Prover):
-    air_class = FibSmallAir
+class FibSmallAir(FibAir):
+    """fib_small: the fib2 AIR over f64
+    (examples/src/fibonacci/fib_small/mod.rs:12)."""
+
+    base_field: BaseField = F64
+
+
+class FibProver(Prover):
+    air_class = FibAir
 
     def __init__(self, options, hasher):
         super().__init__(options)
@@ -97,3 +111,7 @@ class FibSmallProver(Prover):
 
     def get_pub_inputs(self, trace):
         return int(trace.get(1, trace.length - 1))
+
+
+class FibSmallProver(FibProver):
+    air_class = FibSmallAir

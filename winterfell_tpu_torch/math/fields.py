@@ -1,18 +1,20 @@
-"""Host-side exact field arithmetic over Goldilocks (f64) and its
-quadratic/cubic extensions.
+"""Host-side exact field arithmetic over Goldilocks (f64) and f128 and their
+extensions.
 
 Mirrors the semantics (NOT the implementation) of the reference field layer
-(math/src/field/f64/mod.rs, math/src/field/extensions/*.rs):
+(math/src/field/{f64,f128}/mod.rs, math/src/field/extensions/*.rs):
 
 - f64  "Goldilocks": p = 2^64 - 2^32 + 1, TWO_ADICITY = 32, GENERATOR = 7,
   quadratic extension poly x^2 - x + 2, cubic extension poly x^3 - x - 1
   (math/src/field/f64/mod.rs:251-267,398-499).
+- f128: p = 2^128 - 45*2^40 + 1, TWO_ADICITY = 40, GENERATOR = 3, quad poly
+  x^2 - x - 1, cubic extension unsupported (math/src/field/f128/mod.rs:148-307).
 
 Elements are canonical Python ints (tuples of ints for extensions); the
 internal Montgomery representation of the reference is an implementation
 detail that never escapes into proof bytes, so we do not replicate it here.
-The tensor code in ``ops/goldilocks.py`` is held against this module, which
-also serves all host-side protocol math (transcript,
+The tensor code in ``ops/goldilocks.py`` and ``ops/f128.py`` is held against
+this module, which also serves all host-side protocol math (transcript,
 verifier, proof containers).
 """
 
@@ -87,7 +89,21 @@ F64 = BaseField(
     cube_x3=(1, 1, 0),  # x^3 - x - 1 = 0  =>  x^3 = 1 + x  (ca0, ca1, ca2)
 )
 
-BASE_FIELDS = {"f64": F64}
+F128_P = 2**128 - 45 * 2**40 + 1
+
+F128 = BaseField(
+    name="f128",
+    p=F128_P,
+    two_adicity=40,
+    two_adic_root=23953097886125630542083529559205016746,  # f128/mod.rs:148-162
+    generator=3,
+    element_bytes=16,
+    is_canonical=True,
+    quad_x2=(1, 1),  # x^2 - x - 1 = 0  =>  x^2 = x + 1
+    cube_x3=None,  # cubic extension not supported (f128/mod.rs:290-307)
+)
+
+BASE_FIELDS = {"f64": F64, "f128": F128}
 
 
 # ================================================================================
@@ -291,6 +307,8 @@ class Field:
 F64_1 = Field(F64, 1)
 F64_QUAD = Field(F64, 2)
 F64_CUBE = Field(F64, 3)
+F128_1 = Field(F128, 1)
+F128_QUAD = Field(F128, 2)
 
 
 def extension_of(base: BaseField, degree: int) -> Field:

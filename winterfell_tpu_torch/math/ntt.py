@@ -13,9 +13,9 @@ so one code path serves base-field matrices (n, width) and extension-field
 vectors (n, degree): twiddles are base-field scalars either way, matching
 ``mul_base`` semantics.
 
-The port serves only Goldilocks (f64); these object-int transforms are the
-host side of the verifier and the exact oracle of the tensor NTT in
-``ops/goldilocks.py``.
+These object-int transforms (f64 and f128) are the host side of the
+verifier and the exact oracle of the tensor NTTs in ``ops/goldilocks.py``
+and ``ops/f128.py``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The Fiat-Shamir coin on the device for the f64 prover: the port of
-winterfell_tpu/ops/device_coin.py (its Rp64_256 and byte-hasher parts).
+"""The Fiat-Shamir coin on the device for the f64 and f128 provers: the port
+of winterfell_tpu/ops/device_coin.py (its Rp64_256 and byte-hasher parts).
 
 The host :class:`~winterfell_tpu_torch.crypto.random_coin.DefaultRandomCoin`
 (crypto/src/random/default.rs:82-247) needs a host round trip at every
@@ -20,7 +20,12 @@ gives the host coin's bytes back); reseed is one merge launch of the
 hasher's kernel (``ops/blake3.py``, ``ops/sha3.py``); the candidates
 hash(seed ‖ LE64(counter)) of the draws come from one row-hash launch, and
 the hasher's draw kernel (``csrc/byte_coin.cuh``) runs the rejection loop,
-hashing further counters itself past a rejected candidate.
+hashing further counters itself past a rejected candidate. Over f128
+(``eng_name="f128"``, the byte hashers only) a candidate's first 16·d bytes
+are the d base elements of a draw, each accepted when < p (the JAX
+limb_ext_decoder, device_coin.py:235-270), and the draw kernel is the f128
+instance of the same loop (``wt_<draw>_f128``); the elements come out as
+(k, d, 2) tensors of (lo, hi) words.
 
 The Rp64_256 kernels are in ``csrc/rescue.cu`` beside K1 and K2, and share
 their permutation. Each has a wrapper (for a CUDA tensor it launches the kernel on
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 
 from ..math.fields import GOLDILOCKS_P
+from . import f128
 from . import goldilocks as gl
 from . import rescue
 from .device_hashers import DEVICE_HASHERS
@@ -49,7 +55,9 @@ MAX_TRIES = 1000  # a draw gives up after this many candidates, as the host coin
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"rp64_permute_rows": 0, "rp64_coin_draw": 0,
-                            "blake3_coin_draw": 0, "sha3_coin_draw": 0}
+                            "blake3_coin_draw": 0, "sha3_coin_draw": 0,
+                            "blake3_coin_draw_f128": 0,
+                            "sha3_coin_draw_f128": 0}
 
 
 
@@ -230,20 +238,41 @@ def u64_ext_decoder(p: int, degree: int, from_words: bool = False):
     return decode
 
 
+def f128_ext_decoder(degree: int):
+    """Decoder of a candidate digest of (dw,) int32 words -> ``(ok, elem
+    (degree, 2))``: its first 16·degree bytes (zero-padded past a truncated
+    digest) as little-endian f128 elements, ok iff each is < p
+    (device_coin.py:235-270)."""
+
+    p_lo, p_hi = f128.P_WORDS  # p's high word is all ones
+
+    def decode(cand):
+        need = 4 * degree
+        if cand.shape[0] < need:
+            cand = torch.cat([cand, cand.new_zeros(need - cand.shape[0])])
+        vals = cand[:need].contiguous().view(torch.int64).reshape(degree, 2)
+        lo, hi = vals[:, 0], vals[:, 1]
+        ok = bool(((hi != p_hi) | gl._ult(lo, p_lo)).all())
+        return ok, vals
+
+    return decode
+
+
 # ================================================================================
 # The draw kernel, its plain version, and the draw functions
 # ================================================================================
 
 
 def draw_plain(cands, seed, counter0: int, k: int, d: int,
-               kind: str = "rp64_256"):
+               kind: str = "rp64_256", eng_name: str = "f64"):
     """The serial loop of the draw kernels in plain PyTorch (reads the device
-    to test each candidate): (elems (k, d), counter (1,)). ``cands`` are the
-    permuted candidate states (t, 12) for Rp64_256, the candidate digests
-    (t, dw) for a byte hasher."""
+    to test each candidate): (elems (k, d) for f64, (k, d, 2) for f128,
+    counter (1,)). ``cands`` are the permuted candidate states (t, 12) for
+    Rp64_256, the candidate digests (t, dw) for a byte hasher."""
     bk = _byte_coin(kind)
     byte = bk is not None
-    decode = u64_ext_decoder(P, d, from_words=byte)
+    decode = (f128_ext_decoder(d) if eng_name == "f128" else
+              u64_ext_decoder(P, d, from_words=byte))
     elems, ctr, j = [], counter0, 0
     for _ in range(k):
         for _ in range(MAX_TRIES):
@@ -300,14 +329,19 @@ def draw_kernel(cands, seed, counter0: int, k: int, d: int):
     return elems, counter
 
 
-def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int):
+def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int,
+                     eng_name: str = "f64"):
     """The byte hasher's draw kernel on CUDA tensors: k draws of degree-d
     elements from the candidate digests ``cands`` (t, dw) of counters
     counter0 + 1 .., hashing further counters on the card if candidates are
-    rejected. Returns (elems (k, d), counter (1,)); the counter is 2^64 − 1
-    (−1 as int64) if a draw found nothing in 1000 candidates."""
+    rejected. Returns (elems (k, d), counter (1,)), elems (k, d, 2) with
+    ``eng_name="f128"`` (d <= 2); the counter is 2^64 − 1 (−1 as int64) if a
+    draw found nothing in 1000 candidates."""
     bk = _byte_coin(kind)
     dw = bk.digest_words
+    wide = eng_name == "f128"
+    if eng_name not in ("f64", "f128"):
+        raise ValueError(f"byte_draw_kernel: no draw over {eng_name!r}")
     for t, what in ((cands, "cands"), (seed, "seed")):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"byte_draw_kernel: {what} must be contiguous "
@@ -315,42 +349,47 @@ def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int):
     if cands.dim() != 2 or cands.shape[1] != dw or seed.shape != (dw,):
         raise ValueError(f"byte_draw_kernel: expected cands (t, {dw}) and "
                          f"seed ({dw},)")
-    if not 1 <= d <= 4 or k < 1:
-        raise ValueError("byte_draw_kernel: needs k >= 1 and 1 <= d <= 4")
+    if not 1 <= d <= (2 if wide else 4) or k < 1:
+        raise ValueError("byte_draw_kernel: needs k >= 1 and 1 <= d <= "
+                         f"{2 if wide else 4}")
     if seed.device.type != "cuda" or cands.device != seed.device:
         raise ValueError("byte_draw_kernel: the kernel takes CUDA tensors")
     dev = seed.device
-    elems = torch.empty((k, d), dtype=gl.I64, device=dev)
+    elems = torch.empty((k, d, 2) if wide else (k, d), dtype=gl.I64,
+                        device=dev)
     counter = torch.empty((1,), dtype=gl.I64, device=dev)
-    entry = getattr(bk.library(), f"wt_{bk.draw}")
+    name = f"{bk.draw}_f128" if wide else bk.draw
+    entry = getattr(bk.library(), f"wt_{name}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = entry(cands.data_ptr(), seed.data_ptr(), elems.data_ptr(),
                     counter.data_ptr(), counter0, cands.shape[0], k, d, dw,
                     stream)
-    rescue._raise_on(err, bk.draw)
-    LAUNCHES[bk.draw] += 1
+    rescue._raise_on(err, name)
+    LAUNCHES[name] += 1
     return elems, counter
 
 
-def make_draw(next_candidates, degree: int, kind: str = "rp64_256"):
-    """``draw(seed, k=1, counter=0) -> (elems (k, degree), counter (1,))``:
-    k consecutive draws with the host coin's counter semantics; the k
-    candidates come from one launch, the rejection loop runs in the draw
+def make_draw(next_candidates, degree: int, kind: str = "rp64_256",
+              eng_name: str = "f64"):
+    """``draw(seed, k=1, counter=0) -> (elems (k, degree[, 2]), counter
+    (1,))``: k consecutive draws with the host coin's counter semantics; the
+    k candidates come from one launch, the rejection loop runs in the draw
     kernel on the card (its plain version on the CPU)."""
 
     def draw(seed, k: int = 1, counter: int = 0):
         cands = next_candidates(seed, counter, k)
         if seed.device.type == "cpu":
-            return draw_plain(cands, seed, counter, k, degree, kind)
+            return draw_plain(cands, seed, counter, k, degree, kind, eng_name)
         if _byte_coin(kind) is not None:
-            return byte_draw_kernel(kind, cands, seed, counter, k, degree)
+            return byte_draw_kernel(kind, cands, seed, counter, k, degree,
+                                    eng_name)
         return draw_kernel(cands, seed, counter, k, degree)
 
     return draw
 
 
-def make_draw_k(draw):
+def make_draw_k(draw, eng_name: str = "f64"):
     """``draw_k(seed, k, method) -> (elems (k, d), counter)``: the
     composition-coefficient draw (air/src/air/coefficients.rs): 'linear' = k
     independent draws, 'algebraic' = powers 1, a, a², ... of one draw,
@@ -362,7 +401,9 @@ def make_draw_k(draw):
         if method not in ("algebraic", "horner"):
             raise ValueError(f"unknown batching method {method!r}")
         alpha, counter = draw(seed, 1)
-        elems = gl.ext_power_table(alpha[0], k)
+        power_table = (f128.ext_power_table if eng_name == "f128" else
+                       gl.ext_power_table)
+        elems = power_table(alpha[0], k)
         return (elems.flip(0) if method == "horner" else elems), counter
 
     return draw_k
@@ -371,13 +412,14 @@ def make_draw_k(draw):
 @lru_cache(maxsize=None)
 def coin_bundle(kind: str, degree: int, eng_name: str = "f64"):
     """(merge, draw) for a prover configuration: Rp64_256 and the byte
-    hashers over f64 (Rp62_248 and the limb engines come with their
-    slices)."""
+    hashers over f64, the byte hashers over f128 at degree 1 or 2 (f128
+    has no cubic extension; Rp62_248 and f62 come with their slice)."""
     h = DEVICE_HASHERS.get(kind)
-    if eng_name != "f64" or h is None or not h.coin:
+    if (h is None or not h.coin or eng_name not in ("f64", "f128")
+            or (eng_name == "f128" and (h.kind != "bytes" or degree > 2))):
         raise ValueError(f"no device coin for {kind!r} over {eng_name!r}")
     if kind == "rp64_256":
         merge, next_candidates = rp64_coin_ops()
     else:
         merge, next_candidates = byte_coin_ops(kind)
-    return merge, make_draw(next_candidates, degree, kind)
+    return merge, make_draw(next_candidates, degree, kind, eng_name)

@@ -176,9 +176,9 @@ def _kernels():
         lib.wt_sha3_merge_rows.restype = ctypes.c_int
         lib.wt_sha3_merkle_levels.argtypes = [vp, vp, i32_, i32_, vp]
         lib.wt_sha3_merkle_levels.restype = ctypes.c_int
-        lib.wt_sha3_coin_draw.argtypes = [vp, vp, vp, vp, u64, i64, i64,
-                                          i32_, i32_, vp]
-        lib.wt_sha3_coin_draw.restype = ctypes.c_int
+        for draw in (lib.wt_sha3_coin_draw, lib.wt_sha3_coin_draw_f128):
+            draw.argtypes = [vp, vp, vp, vp, u64, i64, i64, i32_, i32_, vp]
+            draw.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -1,8 +1,11 @@
-"""TorchOps — the tensor engine handle passed to ``Air.evaluate_transition``.
+"""TorchOps and TorchOpsF128 — the tensor engine handles passed to
+``Air.evaluate_transition``.
 
 Same interface as :class:`winterfell_tpu_torch.ops.host.HostOps`, but arrays
-are int64 tensors of Goldilocks elements shaped (n_rows, degree), on the
-prover's device. The same AIR constraint code runs unchanged on either engine.
+are int64 tensors on the prover's device: Goldilocks elements shaped
+(n_rows, degree) for :class:`TorchOps`, f128 elements shaped (n_rows,
+degree, 2) for :class:`TorchOpsF128`. The same AIR constraint code runs
+unchanged on any engine.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..math.fields import Field
+from . import f128
 from . import goldilocks as gl
 
 
@@ -80,3 +84,57 @@ class TorchOps:
         if a.shape == b.shape:
             return a, b
         return torch.broadcast_tensors(a, b)
+
+
+class TorchOpsF128:
+    """The engine handle for f128 AIRs (the port of the JAX JaxOpsF128,
+    winterfell_tpu/ops/jax_ops.py:93-181): arrays are (n_rows, degree, 2)
+    int64 tensors of (lo, hi) words (``ops/f128.py``)."""
+
+    is_device = True
+
+    def __init__(self, field: Field, device):
+        assert field.base.name == "f128", (
+            "TorchOpsF128 supports the f128 field")
+        self.field = field
+        self.device = torch.device(device)
+
+    # -- construction (fills on the device, no host copy) --------------------
+
+    def constant(self, v: int):
+        return self.lift((v,) + (0,) * (self.field.degree - 1))
+
+    def lift(self, e):
+        if not isinstance(e, tuple):
+            return e  # already a tensor
+        return torch.cat([f128.fill(int(v), (1, 1), self.device) for v in e],
+                         dim=1)
+
+    def zeros(self, n: int):
+        return torch.zeros((n, self.field.degree, 2), dtype=f128.I64,
+                           device=self.device)
+
+    # -- arithmetic ----------------------------------------------------------
+
+    def add(self, a, b):
+        return f128.ext_add(*self._broadcast(a, b))
+
+    def sub(self, a, b):
+        return f128.ext_sub(*self._broadcast(a, b))
+
+    def neg(self, a):
+        return f128.f128_neg(a)
+
+    def mul(self, a, b):
+        return f128.ext_mul(*self._broadcast(a, b))
+
+    exp = TorchOps.exp
+
+    def mul_base(self, a, s):
+        if isinstance(s, int):
+            return f128.f128_mul(a, f128.const(s))
+        if s.ndim == a.ndim - 1:  # (n, 2) base elements under (n, d, 2)
+            s = s[..., None, :]
+        return f128.f128_mul(a, s)
+
+    _broadcast = staticmethod(TorchOps._broadcast)

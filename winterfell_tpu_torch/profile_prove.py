@@ -1,10 +1,14 @@
-"""Where the time of one GoldilocksProver proof goes on the card.
+"""Where the time of one proof goes on the card.
 
     python -m winterfell_tpu_torch.profile_prove [--log2 18] [--top 15]
-        [--hasher rp64_256] [--walls N]
+        [--hasher rp64_256] [--walls N] [--path fib_small]
 
-Proves fib over f64 (cubic, bench.py's options, Rp64_256 or another f64
-hasher by its name in ``crypto.hashers.HASHERS``) once to warm up,
+Proves fib over f64 (``--path fib_small``: cubic, bench.py's options,
+Rp64_256 or another f64 hasher by its name in ``crypto.hashers.HASHERS``),
+or one of the f128 paths with the F128Prover and Blake3_256 unless
+``--hasher`` names BLAKE3 or SHA3 (``--path rescue_f128``: bench.py's Rescue
+chain, ProofOptions(42, 4, 16, NONE, 8, 31); ``--path fib_f128``: the CLI's
+fib, ProofOptions(28, 8, 16, NONE, 8, 31)), once to warm up,
 then once under ``torch.profiler`` with phase barriers off, and prints one
 JSON object: the route the prove took (resident by default;
 ``WINTER_RESIDENT=0`` for the phased one), the wall time, the device time
@@ -49,6 +53,8 @@ def main() -> int:
                     help="name of the hasher (crypto.hashers.HASHERS)")
     ap.add_argument("--walls", type=int, default=0,
                     help="free-running proves timed before the profiled one")
+    ap.add_argument("--path", default="fib_small",
+                    choices=("fib_small", "rescue_f128", "fib_f128"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -57,15 +63,30 @@ def main() -> int:
 
     from .air import FieldExtension, ProofOptions
     from .crypto import hashers
-    from .examples.fibonacci import FibSmallProver, build_fib_trace
-    from .math.fields import F64
+    from .examples import rescue
+    from .examples.fibonacci import FibProver, FibSmallProver, build_fib_trace
+    from .math.fields import F64, F128
     from .prover.device import GoldilocksProver
+    from .prover.device_f128 import F128Prover
     from .utils import tracing
 
-    options = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
     hasher = hashers.HASHERS[args.hasher]
-    prover = GoldilocksProver.accelerate(FibSmallProver)(options, hasher)
-    trace = build_fib_trace(F64, 2 << args.log2, device="cuda")
+    if args.path == "fib_small":
+        options = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
+        prover = GoldilocksProver.accelerate(FibSmallProver)(options, hasher)
+        trace = build_fib_trace(F64, 2 << args.log2, device="cuda")
+    else:
+        if args.hasher == "rp64_256":
+            hasher = hashers.Blake3_256
+        if args.path == "rescue_f128":
+            options = ProofOptions(42, 4, 16, FieldExtension.NONE, 8, 31)
+            prover = F128Prover.accelerate(rescue.RescueProver)(options,
+                                                                hasher)
+            trace = rescue.build_rescue_trace((42, 43), 1 << (args.log2 - 4))
+        else:
+            options = ProofOptions(28, 8, 16, FieldExtension.NONE, 8, 31)
+            prover = F128Prover.accelerate(FibProver)(options, hasher)
+            trace = build_fib_trace(F128, 2 << args.log2, device="cuda")
     prover.prove(trace)
     tracing.set_phase_sync(False)
     torch.cuda.synchronize()
@@ -99,13 +120,15 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "trace_log2": args.log2,
-        "hasher": args.hasher,
+        "path": args.path,
+        "hasher": hasher.name,
         "route": route,
         "wall_s": wall,
         "free_walls_s": walls,
         "kernel_launches": len(kernels),
         "device_kernel_ms": device_us / 1000 if kernels else None,
         "busy_share": busy_us / (wall * 1e6) if kernels else None,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels": [{"name": n[:90], "launches": c, "ms": us / 1000}
                         for n, (c, us) in top],
     }))

@@ -78,7 +78,7 @@ _RESIDENT_ON_F64 = os.environ.get("WINTER_RESIDENT", "1") not in ("", "0")
 _FRI_FUSE_LIMIT_F64 = 1 << 22
 _RESIDENT_LIMIT_F64 = 1 << 22
 # BatchingMethod -> device draw mode (air/src/options.rs:479-505)
-_BATCH_NAMES_F64 = {0: "linear", 1: "algebraic", 2: "horner"}
+_BATCH_NAMES = {0: "linear", 1: "algebraic", 2: "horner"}
 # the byte hashers' OOD reseed hashes one row on the device; the resident
 # route takes it only within one BLAKE3 chunk (device.py:1111-1118)
 _OOD_BYTES_LIMIT = 1024
@@ -671,8 +671,8 @@ class GoldilocksProver(Prover):
         h = _device_hasher(hasher)
         merge, draw = dc.coin_bundle(coin_kind, d, "f64")
         draw_k = dc.make_draw_k(draw)
-        method_c = _BATCH_NAMES_F64[int(air.options.batching_constraints)]
-        method_d = _BATCH_NAMES_F64[int(air.options.batching_deep)]
+        method_c = _BATCH_NAMES[int(air.options.batching_constraints)]
+        method_d = _BATCH_NAMES[int(air.options.batching_deep)]
 
         # 1 -- trace commit
         main_polys, main_lde, m_leaves, m_levels = _commit_pipeline(

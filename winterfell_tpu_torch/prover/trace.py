@@ -107,10 +107,12 @@ class TraceTable(Trace):
 
     # -- native backing ------------------------------------------------------
     #
-    # Trace builders that make their rows in bulk (e.g. build_fib_trace)
-    # store them as an (n, w) uint64 array instead of Python ints. Device
-    # provers upload this directly (a pure dtype view); the object-array
-    # view for the host prover is materialized lazily on first access.
+    # Trace builders that make their rows in bulk (e.g. build_fib_trace, the
+    # native Rescue chain of native/f128.c) store them as a uint64 array
+    # instead of Python ints: (n, w) for f64, (n, w, 2) little-endian (lo,
+    # hi) pairs for f128. Device provers upload this directly (a pure dtype
+    # view); the object-array view for the host prover is materialized
+    # lazily on first access.
 
     def set_native_rows(self, arr: np.ndarray) -> None:
         assert arr.shape[0] == self._info.length
@@ -136,7 +138,12 @@ class TraceTable(Trace):
     @property
     def data(self) -> np.ndarray:
         if self._data is None:
-            self._data = self._native.astype(object)
+            nat = self._native
+            if nat.ndim == 3:  # (n, w, 2) u64 pairs
+                self._data = nat[..., 0].astype(object) + (
+                    nat[..., 1].astype(object) << 64)
+            else:
+                self._data = nat.astype(object)
         return self._data
 
     @data.setter
@@ -181,7 +188,10 @@ class TraceTable(Trace):
 
     def get(self, column: int, step: int) -> int:
         if self._data is None:  # avoid materializing for point reads
-            return int(self._native[step, column])
+            nat = self._native[step, column]
+            if nat.ndim:  # (2,) u64 pair
+                return int(nat[0]) | (int(nat[1]) << 64)
+            return int(nat)
         return int(self.data[step, column])
 
     # -- accessors ----------------------------------------------------------
