@@ -201,7 +201,7 @@ def test_f128_coin_conversions_and_native_trace():
                 host = DefaultRandomCoin(hasher, [(d,), (7,)], base)
                 host.reseed(root)
                 want = _draw(host, ext, 4, BatchingMethod[method.upper()])
-                elems, counter = dc.make_draw_k(draw, "f128")(seed, 4, method)
+                elems, counter = dc.make_draw_k(draw)(seed, 4, method)
                 assert _words(elems) == want, (kind, d, method)
                 assert counter.tolist() == [host.counter]
         # a planted rejection: an element >= p in the second candidate
@@ -235,3 +235,35 @@ def test_f128_coin_conversions_and_native_trace():
     assert (np.asarray(jax_rescue((3, 4), 4).main_segment())
             == native.main_segment()).all()
     assert native.get(0, 63) == port_rescue.compute_hash_chain((3, 4), 4)[0]
+
+
+# the names the shared prover pipeline (prover/device.py DeviceProver) calls
+# on its field's engine
+_ENGINE_NAMES = (
+    "NAME", "ELEM", "P", "add", "sub", "mul", "pow_const", "batch_inv",
+    "const", "sum0", "elements", "to_device", "to_u64", "ext_add", "ext_sub",
+    "ext_mul", "ext_mul_base", "ext_batch_inv", "ext_power_table",
+    "power_series", "ntt_plan", "ntt_evaluate", "ntt_interpolate",
+    "ntt_evaluate_with_offset", "ntt_interpolate_with_offset",
+    "lde_offset_powers", "interp_offset_powers", "fri_inv_offset_powers",
+    "fri_fold", "_cached")
+
+
+@pytest.mark.parametrize("field", ["f64", "f128"])
+def test_engine_interface(field):
+    """Both engines give the pipeline's names; an element array crosses to
+    the tensor layout and back (``to_device``, ``to_u64``, ``elements``)
+    and ``sum0`` sums modulo p, against Python ints."""
+    from winterfell_tpu_torch.ops import goldilocks as gl
+
+    eng = {"f64": gl, "f128": tf}[field]
+    assert [n for n in _ENGINE_NAMES if not hasattr(eng, n)] == []
+    assert eng.NAME == field
+    rng = np.random.default_rng(7)
+    vals = [[int(v) % eng.P for v in rng.integers(0, 2**62, 3)] + [eng.P - 1]
+            for _ in range(4)]
+    t = eng.to_device(np.array(vals, dtype=object), "cpu")
+    assert tuple(t.shape) == (4, 4) + eng.ELEM
+    assert eng.elements(eng.to_u64(t)) == tuple(map(tuple, vals))
+    want = tuple(sum(col) % eng.P for col in zip(*vals))
+    assert eng.elements(eng.to_u64(eng.sum0(t))) == want

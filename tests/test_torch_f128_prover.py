@@ -26,8 +26,9 @@ import winterfell_tpu_torch as wt
 from winterfell_tpu_torch.crypto import hashers as port_hashers
 from winterfell_tpu_torch.examples import fibonacci as tfib
 from winterfell_tpu_torch.examples import rescue as tres
+from winterfell_tpu_torch.prover import device as port_device
 from winterfell_tpu_torch.prover import device_limb
-from winterfell_tpu_torch.prover.device_f128 import F128Prover
+from winterfell_tpu_torch.prover.device_limb import F128Prover
 from winterfell_tpu_torch.utils import tracing
 
 from tests.test_reference_full_proof_fixture import (
@@ -206,7 +207,7 @@ def test_port_f128_route_matches_jax_dispatch(monkeypatch):
                              tfib.build_fib_trace(wt.F128, seq)))
             assert got == (want, want), (seq, fold, rem, limit, name)
     # the OOD row's bytes (fib: 2·(2 + 1)·16 = 96) above a lowered limit
-    monkeypatch.setattr(device_limb, "_OOD_BYTES_LIMIT", 95)
+    monkeypatch.setattr(port_device, "_OOD_BYTES_LIMIT", 95)
     assert _route_of(PortProver(_options(wt, "NONE"), wt.Blake3_256,
                                 device="cpu"),
                      tfib.build_fib_trace(wt.F128, 64)) == "phased"

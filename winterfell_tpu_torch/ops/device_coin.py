@@ -389,11 +389,12 @@ def make_draw(next_candidates, degree: int, kind: str = "rp64_256",
     return draw
 
 
-def make_draw_k(draw, eng_name: str = "f64"):
-    """``draw_k(seed, k, method) -> (elems (k, d), counter)``: the
+def make_draw_k(draw):
+    """``draw_k(seed, k, method) -> (elems (k, d[, 2]), counter)``: the
     composition-coefficient draw (air/src/air/coefficients.rs): 'linear' = k
     independent draws, 'algebraic' = powers 1, a, a², ... of one draw,
-    'horner' = those powers reversed."""
+    'horner' = those powers reversed. The field is read off the draw: f128
+    elements carry a trailing axis of (lo, hi) words."""
 
     def draw_k(seed, k: int, method: str = "linear"):
         if method == "linear":
@@ -401,7 +402,7 @@ def make_draw_k(draw, eng_name: str = "f64"):
         if method not in ("algebraic", "horner"):
             raise ValueError(f"unknown batching method {method!r}")
         alpha, counter = draw(seed, 1)
-        power_table = (f128.ext_power_table if eng_name == "f128" else
+        power_table = (f128.ext_power_table if alpha.ndim == 3 else
                        gl.ext_power_table)
         elems = power_table(alpha[0], k)
         return (elems.flip(0) if method == "horner" else elems), counter

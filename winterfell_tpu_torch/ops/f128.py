@@ -753,3 +753,22 @@ def to_u64(t: torch.Tensor) -> np.ndarray:
 def to_ints(t: torch.Tensor) -> np.ndarray:
     """(..., 2) int64 tensor -> object array of Python ints."""
     return from_pairs_np(to_u64(t))
+
+
+# ================================================================================
+# The engine interface of the tensor provers (prover/device.py); ops/
+# goldilocks.py gives the same names
+# ================================================================================
+
+NAME = "f128"
+ELEM = (2,)  # the trailing axes of one element: its (lo, hi) words
+add, sub, mul = f128_add, f128_sub, f128_mul
+pow_const, batch_inv = f128_pow_const, f128_batch_inv
+
+
+def elements(pairs: np.ndarray):
+    """A (..., 2) uint64 array of (lo, hi) words as Python ints, nested
+    tuples over its leading axes."""
+    if pairs.ndim == 1:
+        return int(pairs[0]) | (int(pairs[1]) << 64)
+    return tuple(elements(x) for x in pairs)

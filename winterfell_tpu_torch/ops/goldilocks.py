@@ -545,3 +545,29 @@ def to_device(arr_obj: np.ndarray, device) -> torch.Tensor:
 def to_u64(t: torch.Tensor) -> np.ndarray:
     """int64 tensor → numpy uint64 array (same bits)."""
     return t.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+# ================================================================================
+# The engine interface of the tensor provers (prover/device.py); ops/f128.py
+# gives the same names
+# ================================================================================
+
+NAME = "f64"
+ELEM = ()  # the trailing axes of one element
+add, sub, mul = gl_add, gl_sub, gl_mul
+pow_const, batch_inv = gl_pow_const, gl_batch_inv
+
+
+def sum0(arr):
+    """Modular sum along axis 0 (power-of-two length), as a tree."""
+    while arr.shape[0] > 1:
+        half = arr.shape[0] // 2
+        arr = gl_add(arr[:half], arr[half : 2 * half])
+    return arr[0]
+
+
+def elements(a: np.ndarray):
+    """A uint64 array as Python ints, nested tuples over its axes."""
+    if a.ndim == 0:
+        return int(a)
+    return tuple(elements(x) for x in a)

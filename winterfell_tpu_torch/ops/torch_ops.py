@@ -138,3 +138,9 @@ class TorchOpsF128:
         return f128.f128_mul(a, s)
 
     _broadcast = staticmethod(TorchOps._broadcast)
+
+
+def ops_for(field: Field, device):
+    """The engine handle for an AIR over ``field``'s base field."""
+    cls = TorchOpsF128 if field.base.name == "f128" else TorchOps
+    return cls(field, device)

@@ -14,10 +14,14 @@ JSON object: the route the prove took (resident by default;
 ``WINTER_RESIDENT=0`` for the phased one), the wall time, the device time
 summed over kernels, the share of the wall during which some kernel ran
 (busy share, from the union of the kernel intervals), the number of kernel
-launches, and the kernels with the most device time. With ``--walls N``,
-N more proves run free (no profiler, phase barriers off) before the
-profiled one, and their walls are printed too. Needs a CUDA card; exits
-non-zero without one.
+launches, the host time per launch (the wall outside every kernel interval
+over the launches), and the kernels with the most device time. On the f128
+paths it also times one B13 multiply on 1024 elements called 2000 times in
+a row, through its entry point (``f128_mul``: checks, layout, output
+allocation and launch) and as the bare launch with the layout and output
+made once, host microseconds per call. With ``--walls N``, N more proves
+run free (no profiler, phase barriers off) before the profiled one, and
+their walls are printed too. Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -45,6 +49,31 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _b13_host_us(calls: int = 2000) -> dict:
+    """Host microseconds per B13 multiply on (1024, 2) CUDA elements: through
+    ``f128_mul`` and as the bare launch (layout and output made once)."""
+    from .ops import f128
+
+    a = f128.power_series(3, 1024, "cuda")
+    b = f128.power_series(5, 1024, "cuda")
+    layout = f128.op_layout("f128_mul", a, b)
+    out = torch.empty_like(a)
+    launch = f128._LAUNCH["mul"]
+    out_us = {}
+    for name, call in (
+            ("entry_point", lambda: f128.f128_mul(a, b)),
+            ("bare_launch", lambda: launch(a[..., 0], b[..., 0],
+                                           out[..., 0], layout))):
+        call()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+        out_us[name] = (time.perf_counter() - t) * 1e6 / calls
+    return out_us
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--log2", type=int, default=18, help="log2 trace rows")
@@ -67,7 +96,7 @@ def main() -> int:
     from .examples.fibonacci import FibProver, FibSmallProver, build_fib_trace
     from .math.fields import F64, F128
     from .prover.device import GoldilocksProver
-    from .prover.device_f128 import F128Prover
+    from .prover.device_limb import F128Prover
     from .utils import tracing
 
     hasher = hashers.HASHERS[args.hasher]
@@ -117,6 +146,7 @@ def main() -> int:
              "phased, host coin")
     device_us = sum(e - s for s, e in intervals)
     busy_us = _busy_us(intervals)
+    b13 = _b13_host_us() if args.path != "fib_small" else None
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "trace_log2": args.log2,
@@ -128,6 +158,9 @@ def main() -> int:
         "kernel_launches": len(kernels),
         "device_kernel_ms": device_us / 1000 if kernels else None,
         "busy_share": busy_us / (wall * 1e6) if kernels else None,
+        "host_us_per_launch": ((wall * 1e6 - busy_us) / len(kernels)
+                               if kernels else None),
+        "b13_mul_host_us": b13,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels": [{"name": n[:90], "launches": c, "ms": us / 1000}
                         for n, (c, us) in top],

@@ -1,10 +1,13 @@
 """GoldilocksProver — the tensor prove() pipeline for f64 AIRs, with the
 hashers the JAX package's GoldilocksProver takes: Rp64_256, RpJive64_256,
-Blake3_256, Blake3_192 and Sha3_256.
+Blake3_256, Blake3_192 and Sha3_256 — and ``DeviceProver``, that pipeline over
+either field's engine, which the f128 prover (``prover/device_limb.py``)
+shares.
 
 Same 8-step protocol as the host :class:`winterfell_tpu_torch.prover.Prover`
 (prover/src/lib.rs:282-492), with every domain-sized step on a torch device
-through ``ops/goldilocks.py``:
+through the field's engine (``ops/goldilocks.py``, ``ops/f128.py``: the same
+names over int64 elements or (lo, hi) word pairs):
 
 - trace and composition interpolation + coset LDE: tensor NTT;
 - row hashing and Merkle levels: the hasher's kernels (``ops/rescue.py``,
@@ -12,9 +15,9 @@ through ``ops/goldilocks.py``:
   (m, 4) int64 field elements, BLAKE3 and SHA3 digests (m, 8) or (m, 6)
   int32 words (their ``<u4`` bytes are the digest bytes);
 - constraint evaluation: the AIR's own ``evaluate_transition`` run with
-  :class:`TorchOps` over the whole CE domain; sequence assertions evaluate
-  their value polynomials with one batched NTT
-  (prover/src/constraints/evaluator/boundary.rs:29-445);
+  the engine's :mod:`~winterfell_tpu_torch.ops.torch_ops` handle over the
+  whole CE domain; sequence assertions evaluate their value polynomials
+  with one batched NTT (prover/src/constraints/evaluator/boundary.rs:29-445);
 - DEEP composition: pointwise rational evaluation over the LDE domain,
   C_z(x)/(x−z) + C_gz(x)/(x−z·g), with one batched extension inversion. The
   numerators vanish at z and z·g, so this equals the reference's synthetic
@@ -45,6 +48,7 @@ in every route. Entry points run on the card unless the caller passes
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Dict, List
 
@@ -58,11 +62,11 @@ from ..crypto.hashers import HASHERS
 from ..crypto.merkle import MerkleTree
 from ..fri import FriOptions, fold_positions
 from ..math import ntt as host_ntt
-from ..math.fields import F64, Field
+from ..math.fields import Field
 from ..ops import device_coin as dc
 from ..ops import goldilocks as gl
 from ..ops.device_hashers import DEVICE_HASHERS, DeviceHasher
-from ..ops.torch_ops import TorchOps
+from ..ops.torch_ops import ops_for
 from ..ops.words import rows_from_u64
 from ..utils import tracing
 from . import Prover
@@ -237,63 +241,63 @@ class PrehashedMerkleTree(MerkleTree):
         return super().prove_batch(indexes)
 
 
-def _gl_sum(arr):
-    """Modular sum along axis 0 (power-of-two length), as a tree."""
-    while arr.shape[0] > 1:
-        half = arr.shape[0] // 2
-        arr = gl.gl_add(arr[:half], arr[half : 2 * half])
-    return arr[0]
+# ================================================================================
+# Pipeline pieces, over either field's engine (``eng``: ops/goldilocks.py or
+# ops/f128.py). An element is an int64 scalar (f64) or a (lo, hi) word pair on
+# a trailing axis (f128, ``eng.ELEM``); extension elements add an axis of
+# degree d before it.
+# ================================================================================
 
 
-def _ext_tensor(values, device) -> torch.Tensor:
-    """(k, d) tensor from a list of extension tuples."""
-    arr = np.array([[gl.const(v) for v in e] for e in values], dtype=np.int64)
-    return torch.from_numpy(arr.reshape(len(values), -1)).to(device)
+def _ext_tensor(eng, values, device) -> torch.Tensor:
+    """(k, d, *ELEM) tensor from a list of extension tuples."""
+    return eng.to_device(np.array([list(e) for e in values], dtype=object),
+                         device)
 
 
-def _eval_cols_pair(polys, pows2):
+def _eval_cols_pair(eng, polys, pows2):
     """All column polynomials at z and z·g at once: polys (n, k) base or
-    (n, k, d) ext, pows2 (n, 2, d) → (k, 2, d)."""
-    if polys.ndim == 2:
-        prod = gl.gl_mul(polys[:, :, None, None], pows2[:, None, :, :])
+    (n, k, d) ext, pows2 (n, 2, d) → (k, 2, d) (each with ELEM after)."""
+    if polys.ndim == 2 + len(eng.ELEM):
+        prod = eng.mul(polys[:, :, None, None], pows2[:, None])
     else:
-        prod = gl.ext_mul(
-            polys[:, :, None, :],
+        prod = eng.ext_mul(
+            polys[:, :, None],
             pows2[:, None].expand(polys.shape[:2] + pows2.shape[1:]))
-    return _gl_sum(prod)
+    return eng.sum0(prod)
 
 
-def _ood_pairs(main_polys, comp_columns, z, g_trace: int):
+def _ood_pairs(eng, main_polys, comp_columns, z, g_trace: int):
     """OOD evaluations of every column at z and z·g for a (d,) device z:
     (main (w, 2, d), composition (cols, 2, d)). The power tables are built
     on the device from z (winterfell_tpu/prover/device.py:1551-1563)."""
     n = main_polys.shape[0]
-    zg = gl.gl_mul(z, gl.const(g_trace))
-    pows2 = torch.stack([gl.ext_power_table(z, n),
-                         gl.ext_power_table(zg, n)], dim=1)
-    return (_eval_cols_pair(main_polys, pows2),
-            _eval_cols_pair(comp_columns, pows2))
+    zg = eng.mul(z, eng.const(g_trace))
+    pows2 = torch.stack([eng.ext_power_table(z, n),
+                         eng.ext_power_table(zg, n)], dim=1)
+    return (_eval_cols_pair(eng, main_polys, pows2),
+            _eval_cols_pair(eng, comp_columns, pows2))
 
 
-def _transition_divisor_inv(xs, n: int, exemptions):
+def _transition_divisor_inv(eng, xs, n: int, exemptions):
     """1/(x^n − 1) · Π(x − e) over the CE domain."""
-    inv_num = gl.gl_batch_inv(gl.gl_sub(gl.gl_pow_const(xs, n), 1))
-    exempt = torch.ones_like(xs)
+    out = eng.batch_inv(eng.sub(eng.pow_const(xs, n), 1))
     for e in exemptions:
-        exempt = gl.gl_mul(exempt, gl.gl_sub(xs, gl.const(e)))
-    return gl.gl_mul(inv_num, exempt)
+        out = eng.mul(out, eng.sub(xs, eng.const(e)))
+    return out
 
 
-def _boundary_divisor_inv(xs, a: int, b0: int):
+def _boundary_divisor_inv(eng, xs, a: int, b0: int):
     """1/(x^a − b0) over the CE domain."""
-    return gl.gl_batch_inv(gl.gl_sub(gl.gl_pow_const(xs, a), gl.const(b0)))
+    return eng.batch_inv(eng.sub(eng.pow_const(xs, a), eng.const(b0)))
 
 
 def _hash_rows_bytes(rows_2d, psize: int, h: DeviceHasher):
-    """Byte-hasher (BLAKE3, SHA3) row hashing of (m, k) element rows with
-    PartitionOptions column chunking: each chunk's little-endian bytes are
-    hashed, the chunk digests combined with merge_many = the hash of their
-    concatenated bytes (winterfell_tpu/prover/device.py:671-687)."""
+    """Byte-hasher (BLAKE3, SHA3) row hashing of (m, k) int64 word rows with
+    PartitionOptions column chunking by psize words: each chunk's
+    little-endian bytes are hashed, the chunk digests combined with
+    merge_many = the hash of their concatenated bytes
+    (winterfell_tpu/prover/device.py:671-687)."""
     hash_fn, dw = h.hash_rows, h.digest_words
     words, byte_len = rows_from_u64(rows_2d.contiguous())
     k = rows_2d.shape[1]
@@ -307,11 +311,12 @@ def _hash_rows_bytes(rows_2d, psize: int, h: DeviceHasher):
     return hash_fn(joined, 4 * joined.shape[1], dw)
 
 
-def _hash_rows_part(rows_2d, psize: int, hasher):
-    """Row hashing with PartitionOptions column chunking: each chunk of psize
-    base columns is hashed separately and the chunk digests combined with
-    merge_many (row_matrix.rs:184-229)."""
-    h = _device_hasher(hasher)
+def _hash_rows_part(eng, rows, psize: int, h: DeviceHasher):
+    """Row hashing of (m, ...) element rows with PartitionOptions column
+    chunking: each chunk of psize base elements is hashed separately and the
+    chunk digests combined with merge_many (row_matrix.rs:184-229)."""
+    rows_2d = rows.reshape(rows.shape[0], -1)
+    psize *= math.prod(eng.ELEM)  # in int64 words
     if h.kind == "bytes":
         return _hash_rows_bytes(rows_2d, psize, h)
     hash_fn = h.hash_rows
@@ -323,42 +328,42 @@ def _hash_rows_part(rows_2d, psize: int, hasher):
     return hash_fn(torch.cat(digests, dim=1))
 
 
-def _commit_pipeline(matrix, n: int, offset: int, blowup: int, psize: int,
-                     hasher):
+def _commit_pipeline(eng, matrix, n: int, offset: int, blowup: int,
+                     psize: int, h: DeviceHasher):
     """Interpolate → coset LDE → row hash → Merkle levels."""
-    polys = gl.ntt_interpolate(matrix, n)
-    lde = gl.ntt_evaluate_with_offset(polys, n, offset, blowup)
-    leaves = _hash_rows_part(lde.reshape(lde.shape[0], -1), psize, hasher)
-    return polys, lde, leaves, _device_hasher(hasher).merkle_levels(leaves)
+    polys = eng.ntt_interpolate(matrix, n)
+    lde = eng.ntt_evaluate_with_offset(polys, n, offset, blowup)
+    leaves = _hash_rows_part(eng, lde, psize, h)
+    return polys, lde, leaves, h.merkle_levels(leaves)
 
 
-def _comp_commit_pipeline(ce_column, ce: int, n: int, offset: int,
-                          blowup: int, num_cols: int, psize: int, hasher):
+def _comp_commit_pipeline(eng, ce_column, ce: int, n: int, offset: int,
+                          blowup: int, num_cols: int, psize: int,
+                          h: DeviceHasher):
     """Composition commitment: iNTT the CE column over its coset, split the
     first num_cols trace-length coefficient chunks into columns
     (composition_poly.rs:55-85), then LDE, hash and Merkle levels."""
-    coeffs = gl.ntt_interpolate_with_offset(ce_column, ce, offset)
-    d = ce_column.shape[-1]
-    comp_columns = coeffs[: num_cols * n].reshape(num_cols, n, d).transpose(
-        0, 1).contiguous()
-    lde = gl.ntt_evaluate_with_offset(comp_columns, n, offset, blowup)
-    leaves = _hash_rows_part(lde.reshape(lde.shape[0], -1), psize, hasher)
-    return comp_columns, lde, leaves, _device_hasher(hasher).merkle_levels(leaves)
+    coeffs = eng.ntt_interpolate_with_offset(ce_column, ce, offset)
+    comp_columns = coeffs[: num_cols * n].reshape(
+        (num_cols, n) + coeffs.shape[1:]).transpose(0, 1).contiguous()
+    lde = eng.ntt_evaluate_with_offset(comp_columns, n, offset, blowup)
+    leaves = _hash_rows_part(eng, lde, psize, h)
+    return comp_columns, lde, leaves, h.merkle_levels(leaves)
 
 
-def _fri_layer_commit(evaluations, n_fold: int, hasher):
+def _fri_layer_commit(eng, evaluations, n_fold: int, h: DeviceHasher):
     """Transpose a FRI layer into N-value rows, hash, Merkle levels
     (fri/src/prover/mod.rs:202-222)."""
-    n, d = evaluations.shape
+    n, d = evaluations.shape[:2]
     rows = n // n_fold
-    transposed = evaluations.reshape(n_fold, rows, d).transpose(0, 1).contiguous()
-    leaves = _hash_rows_part(transposed.reshape(rows, n_fold * d),
-                             n_fold * d, hasher)
-    return transposed, leaves, _device_hasher(hasher).merkle_levels(leaves)
+    transposed = evaluations.reshape(
+        (n_fold, rows) + evaluations.shape[1:]).transpose(0, 1).contiguous()
+    leaves = _hash_rows_part(eng, transposed, n_fold * d, h)
+    return transposed, leaves, h.merkle_levels(leaves)
 
 
-def _fri_phase_body(deep_evals, seed, merge, draw, hasher, n_fold: int,
-                    n_layers: int, offset: int):
+def _fri_phase_body(eng, deep_evals, seed, merge, draw, h: DeviceHasher,
+                    n_fold: int, n_layers: int, offset: int):
     """The FRI commit phase with the coin on the device
     (winterfell_tpu/prover/device.py:_fri_phase_body_f64): per layer
     transpose, hash, Merkle levels, reseed with the root, draw α, fold; then
@@ -367,14 +372,14 @@ def _fri_phase_body(deep_evals, seed, merge, draw, hasher, n_fold: int,
     evaluations = deep_evals
     outs = []
     for _ in range(n_layers):
-        transposed, leaves, levels = _fri_layer_commit(evaluations, n_fold,
-                                                       hasher)
+        transposed, leaves, levels = _fri_layer_commit(eng, evaluations,
+                                                       n_fold, h)
         seed = merge(seed, levels[-1])
         alpha, _ = draw(seed)
-        evaluations = gl.fri_fold(evaluations, n_fold, offset, alpha[0])
+        evaluations = eng.fri_fold(evaluations, n_fold, offset, alpha[0])
         outs.append((transposed, leaves, levels))
-    rem = gl.ntt_interpolate_with_offset(evaluations, evaluations.shape[0],
-                                         offset)
+    rem = eng.ntt_interpolate_with_offset(evaluations, evaluations.shape[0],
+                                          offset)
     return outs, rem, seed
 
 
@@ -391,33 +396,35 @@ def _pull_small(tensors) -> List[np.ndarray]:
     return out
 
 
-def _ood_lists(pair: np.ndarray):
+def _ood_lists(eng, pair: np.ndarray):
     """(k, 2, d) uint64 OOD pair -> (values at z, values at z·g) as tuples."""
-    cur = [tuple(int(x) for x in row[0]) for row in pair]
-    nxt = [tuple(int(x) for x in row[1]) for row in pair]
-    return cur, nxt
+    return ([eng.elements(row[0]) for row in pair],
+            [eng.elements(row[1]) for row in pair])
 
 
-def _deep_combine(comp_z, comp_gz, z_arr, zg_arr, xs):
+def _deep_combine(eng, comp_z, comp_gz, z_arr, zg_arr, xs):
     """comp_z/(x−z) + comp_gz/(x−z·g) with one paired extension inversion."""
     d = comp_z.shape[1]
-    xs_ext = torch.cat([xs[:, None], torch.zeros((xs.shape[0], d - 1),
-                                                 dtype=I64, device=xs.device)],
-                       dim=1)
-    den_z = gl.ext_sub(xs_ext, z_arr.expand_as(xs_ext))
-    den_gz = gl.ext_sub(xs_ext, zg_arr.expand_as(xs_ext))
+    xs_ext = torch.cat([xs[:, None],
+                        torch.zeros((xs.shape[0], d - 1) + xs.shape[1:],
+                                    dtype=I64, device=xs.device)], dim=1)
+    den_z = eng.ext_sub(xs_ext, z_arr.expand_as(xs_ext))
+    den_gz = eng.ext_sub(xs_ext, zg_arr.expand_as(xs_ext))
     # 1/a = inv(ab)·b, 1/b = inv(ab)·a
-    inv_prod = gl.ext_batch_inv(gl.ext_mul(den_z, den_gz))
-    inv_z = gl.ext_mul(inv_prod, den_gz)
-    inv_gz = gl.ext_mul(inv_prod, den_z)
-    return gl.ext_add(gl.ext_mul(comp_z, inv_z), gl.ext_mul(comp_gz, inv_gz))
+    inv_prod = eng.ext_batch_inv(eng.ext_mul(den_z, den_gz))
+    inv_z = eng.ext_mul(inv_prod, den_gz)
+    inv_gz = eng.ext_mul(inv_prod, den_z)
+    return eng.ext_add(eng.ext_mul(comp_z, inv_z), eng.ext_mul(comp_gz, inv_gz))
 
 
-class GoldilocksProver(Prover):
-    """Drop-in Prover for f64 AIRs with Rp64_256, RpJive64_256, BLAKE3 or
-    SHA3 commitments. Subclass or wrap an existing prover class via
-    ``accelerate``; pass ``device=`` (default "cuda") to choose where the
-    pipeline runs."""
+class DeviceProver(Prover):
+    """The tensor prove() pipeline over one field's engine (``engine``), the
+    part the f64 and f128 provers share. A concrete prover sets ``engine``
+    and gives its hasher check (``_device_hasher``) and its route switches
+    and limits (``_routes``); pass ``device=`` (default "cuda") to choose
+    where the pipeline runs."""
+
+    engine = None  # ops/goldilocks.py or ops/f128.py
 
     def __init__(self, *args, device="cuda", **kwargs):
         super().__init__(*args, **kwargs)
@@ -426,27 +433,42 @@ class GoldilocksProver(Prover):
     @classmethod
     def accelerate(cls, prover_cls):
         """Builds a tensor-pipeline subclass of a host Prover class."""
-        return type(f"Goldilocks{prover_cls.__name__}", (cls, prover_cls), {})
+        return type(f"{cls.__name__[:-6]}{prover_cls.__name__}",
+                    (cls, prover_cls), {})
+
+    def _device_hasher(self) -> DeviceHasher:
+        raise NotImplementedError
+
+    def _routes(self):
+        """(resident route on, fused FRI on, the resident route's largest
+        LDE, the fused FRI phase's largest LDE), read at each prove."""
+        raise NotImplementedError
 
     def _upload_trace(self, trace) -> torch.Tensor:
+        eng = self.engine
         cache = trace.device_cache() if hasattr(trace, "device_cache") else {}
         key = ("torch", str(self.device))
         main_dev = cache.get(key)
         if main_dev is None:
             rows = trace.native_rows() if hasattr(trace, "native_rows") else None
-            if rows is None:
-                rows = trace.main_segment()
-            main_dev = gl.to_device(rows, self.device)
+            if rows is not None and rows.ndim == 2 + len(eng.ELEM):
+                # the engine's u64 words already: (n, w) or (n, w, 2)
+                main_dev = torch.from_numpy(np.ascontiguousarray(
+                    rows, dtype=np.uint64).view(np.int64)).to(self.device)
+            else:
+                main_dev = eng.to_device(trace.main_segment(), self.device)
             cache[key] = main_dev
         return main_dev
 
     def prove(self, trace) -> Proof:
+        eng = self.engine
         pub_inputs = self.get_pub_inputs(trace)
         air = self.air_class(trace.info(), pub_inputs, self.options)
-        assert air.base is F64, "GoldilocksProver requires the f64 base field"
-        h = _device_hasher(self.hasher)
+        assert air.base.p == eng.P, (
+            f"{type(self).__name__} requires the {eng.NAME} base field")
+        h = self._device_hasher()
         assert not air.trace_info.is_multi_segment, (
-            "GoldilocksProver proves single-segment traces")
+            f"{type(self).__name__} proves single-segment traces")
         channel = ProverChannel(air, air.pub_inputs_to_elements(), self.hasher)
         phases = tracing.Phases("device_prove")
         fri_opts = FriOptions(air.options.blowup_factor,
@@ -456,13 +478,14 @@ class GoldilocksProver(Prover):
         n_layers = fri_opts.num_fri_layers(lde_size)
         rem_n = lde_size // fri_opts.folding_factor**n_layers
         # the JAX package's dispatch (winterfell_tpu/prover/device.py:
-        # 1105-1118) for one segment and no mesh
+        # 1105-1118, device_limb.py:606-616) for one segment and no mesh
+        resident_on, _, resident_limit, _ = self._routes()
         coin_kind = h.name if h.coin else None
         ood_bytes = (2 * (air.trace_info.width
                           + air.context.num_constraint_composition_columns())
-                     * air.ext_field.degree * 8)
-        if (_RESIDENT_ON_F64 and coin_kind is not None and n_layers > 0
-                and rem_n >= 2 and lde_size <= _RESIDENT_LIMIT_F64
+                     * air.ext_field.degree * air.base.element_bytes)
+        if (resident_on and coin_kind is not None and n_layers > 0
+                and rem_n >= 2 and lde_size <= resident_limit
                 and (h.kind == "field" or ood_bytes <= _OOD_BYTES_LIMIT)):
             return self._prove_resident(air, trace, channel, phases, fri_opts,
                                         n_layers, rem_n, coin_kind)
@@ -473,7 +496,9 @@ class GoldilocksProver(Prover):
                       n_layers: int, rem_n: int) -> Proof:
         """Steps 1-6 with the host coin between phases; the FRI phase runs
         fused with the coin on the device where the JAX package fuses it."""
+        eng = self.engine
         dev = self.device
+        h = self._device_hasher()
         ext = air.ext_field
         d = ext.degree
         n = air.trace_length
@@ -488,8 +513,7 @@ class GoldilocksProver(Prover):
         phases.mark("commit_main_upload")
         w = main_dev.shape[1]
         main_polys, main_lde, leaves, levels = _commit_pipeline(
-            main_dev, n, offset, blowup, part.partition_size(w, 1),
-            self.hasher)
+            eng, main_dev, n, offset, blowup, part.partition_size(w, 1), h)
         main_tree = PrehashedMerkleTree(leaves, levels, self.hasher)
         channel.commit_trace(main_tree.root)
         phases.mark("commit_to_main_trace_segment", lde_domain_size=lde_size)
@@ -499,50 +523,52 @@ class GoldilocksProver(Prover):
         boundary = air.get_boundary_constraints(
             None, list(range(air.context.num_assertions)))
         ce_column = tracing.sync(self._evaluate_constraints(
-            air, main_lde, _ext_tensor(ccs.transition + ccs.boundary, dev),
+            air, main_lde,
+            _ext_tensor(eng, ccs.transition + ccs.boundary, dev),
             boundary, self._seq_coeffs(air, boundary)))
         phases.mark("evaluate_constraints", ce_domain_size=ce)
 
         # 3 ----- composition commitment ------------------------------------
         num_cols = air.context.num_constraint_composition_columns()
         comp_columns, comp_lde, leaves, levels = _comp_commit_pipeline(
-            ce_column, ce, n, offset, blowup, num_cols,
-            part.partition_size(num_cols, d) * d, self.hasher)
+            eng, ce_column, ce, n, offset, blowup, num_cols,
+            part.partition_size(num_cols, d) * d, h)
         del ce_column
         comp_tree = PrehashedMerkleTree(leaves, levels, self.hasher)
         channel.commit_constraints(comp_tree.root)
         phases.mark("commit_to_constraint_evaluations")
 
         # 4 ----- OOD evaluations + DEEP ------------------------------------
-        z = _ext_tensor([channel.get_ood_point()], dev)[0]
-        g_trace = F64.get_root_of_unity(n.bit_length() - 1)
-        main_pair, comp_pair = _ood_pairs(main_polys, comp_columns, z, g_trace)
+        z = _ext_tensor(eng, [channel.get_ood_point()], dev)[0]
+        g_trace = air.base.get_root_of_unity(n.bit_length() - 1)
+        main_pair, comp_pair = _ood_pairs(eng, main_polys, comp_columns, z,
+                                          g_trace)
         # both matrices' evaluations cross to the host in one copy
         main_np, comp_np = _pull_small([main_pair, comp_pair])
-        trace_cur, trace_nxt = _ood_lists(main_np)
-        quot_cur, quot_nxt = _ood_lists(comp_np)
+        trace_cur, trace_nxt = _ood_lists(eng, main_np)
+        quot_cur, quot_nxt = _ood_lists(eng, comp_np)
         channel.send_ood_evaluations(trace_cur, trace_nxt, quot_cur, quot_nxt)
         phases.mark("ood_evaluations")
         deep_ccs = channel.get_deep_composition_coeffs()
         deep_evaluations = tracing.sync(self._deep_evaluations(
             air, main_lde, comp_lde, z, g_trace, main_pair, comp_pair,
-            _ext_tensor(deep_ccs.trace + deep_ccs.constraints, dev)))
+            _ext_tensor(eng, deep_ccs.trace + deep_ccs.constraints, dev)))
         phases.mark("build_deep_composition_poly")
 
         # 6 ----- FRI layers -------------------------------------------------
         n_fold = fri_opts.folding_factor
         fri_layers = []  # (tree, transposed (rows, N, d))
-        h = _device_hasher(self.hasher)
+        _, fused_on, _, fuse_limit = self._routes()
         coin_kind = h.name if h.coin else None
-        if (_FUSED_FRI_ON and coin_kind is not None and n_layers > 0
-                and rem_n >= 2 and lde_size <= _FRI_FUSE_LIMIT_F64):
+        if (fused_on and coin_kind is not None and n_layers > 0
+                and rem_n >= 2 and lde_size <= fuse_limit):
             # the whole commit phase with the coin on the device; the roots
             # and the seed cross to the host in one copy at its end
-            merge, draw = dc.coin_bundle(coin_kind, d, "f64")
+            merge, draw = dc.coin_bundle(coin_kind, d, eng.NAME)
             outs, rem_coeffs, seed = _fri_phase_body(
-                deep_evaluations,
+                eng, deep_evaluations,
                 dc.seed_tensor(channel.public_coin.seed, dev, coin_kind),
-                merge, draw, self.hasher, n_fold, n_layers, offset)
+                merge, draw, h, n_fold, n_layers, offset)
             pulled = _pull_small([lv[-1] for _, _, lv in outs] + [seed])
             for (transposed, leaves, levels), root in zip(outs, pulled):
                 tree = PrehashedMerkleTree(leaves, levels, self.hasher,
@@ -556,14 +582,14 @@ class GoldilocksProver(Prover):
             evaluations = deep_evaluations
             for _ in range(n_layers):
                 transposed, leaves, levels = _fri_layer_commit(
-                    evaluations, n_fold, self.hasher)
+                    eng, evaluations, n_fold, h)
                 tree = PrehashedMerkleTree(leaves, levels, self.hasher)
                 channel.commit_fri_layer(tree.root)
-                alpha = _ext_tensor([channel.draw_fri_alpha()], dev)[0]
-                evaluations = gl.fri_fold(evaluations, n_fold, offset, alpha)
+                alpha = _ext_tensor(eng, [channel.draw_fri_alpha()], dev)[0]
+                evaluations = eng.fri_fold(evaluations, n_fold, offset, alpha)
                 fri_layers.append((tree, transposed))
-            rem_coeffs = gl.ntt_interpolate_with_offset(evaluations, rem_n,
-                                                        offset)
+            rem_coeffs = eng.ntt_interpolate_with_offset(evaluations, rem_n,
+                                                         offset)
         return self._finish_proof(air, channel, phases, rem_n, rem_coeffs,
                                   fri_layers, main_tree, main_lde, comp_tree,
                                   comp_lde)
@@ -581,6 +607,7 @@ class GoldilocksProver(Prover):
         copy and resumes the channel exactly where the phased route would
         stand: roots appended to the commitments, the OOD frame set, the
         seed taken from the device, the counter at 0."""
+        eng = self.engine
         ext = air.ext_field
         dev = self.device
         main_dev = tracing.sync(self._upload_trace(trace))
@@ -605,8 +632,8 @@ class GoldilocksProver(Prover):
         comp_tree = PrehashedMerkleTree(c_leaves, c_levels, self.hasher,
                                         roots[1])
         channel.commitments.raw += comp_tree.root
-        trace_cur, trace_nxt = _ood_lists(pulled[2 + n_layers])
-        quot_cur, quot_nxt = _ood_lists(pulled[3 + n_layers])
+        trace_cur, trace_nxt = _ood_lists(eng, pulled[2 + n_layers])
+        quot_cur, quot_nxt = _ood_lists(eng, pulled[3 + n_layers])
         channel.ood_frame = OodFrame.new(ext, trace_cur, trace_nxt, quot_cur,
                                          quot_nxt)
         fri_layers = []
@@ -630,6 +657,7 @@ class GoldilocksProver(Prover):
         sequence-assertion coefficients (boundary values)."""
         from ..ops import rescue
 
+        eng = self.engine
         dev = self.device
         n = air.trace_length
         lde_size = air.lde_domain_size
@@ -639,16 +667,17 @@ class GoldilocksProver(Prover):
         rem_n = lde_size // n_fold**n_layers
         for size, inverse in ((n, True), (lde_size, False), (ce, True),
                               (ce, False), (n_fold, True), (rem_n, True)):
-            gl.ntt_plan(size, inverse, dev)
-        gl.lde_offset_powers(n, offset, dev)
-        gl.interp_offset_powers(ce, offset, dev)
-        gl.interp_offset_powers(rem_n, offset, dev)
+            eng.ntt_plan(size, inverse, dev)
+        eng.lde_offset_powers(n, offset, dev)
+        eng.interp_offset_powers(ce, offset, dev)
+        eng.interp_offset_powers(rem_n, offset, dev)
         for i in range(n_layers):
-            gl.fri_inv_offset_powers(lde_size // n_fold**i, n_fold, offset,
-                                     dev)
-        if air.ext_field.degree == 3:
-            gl.frobenius_table(3, dev)
-        rescue._table("ark", dev)
+            eng.fri_inv_offset_powers(lde_size // n_fold**i, n_fold, offset,
+                                      dev)
+        if air.ext_field.degree == 3:  # f64 only
+            eng.frobenius_table(3, dev)
+        if self._device_hasher().kind == "field":  # Rp64_256's coin
+            rescue._table("ark", dev)
         self._ce_consts(air, boundary)
         self._lde_xs(air)
         return self._seq_coeffs(air, boundary)
@@ -657,6 +686,7 @@ class GoldilocksProver(Prover):
                       n_layers: int, coin_kind: str):
         """The device part of the resident route: only launches, no host
         read (winterfell_tpu/prover/device.py:1522-1585)."""
+        eng = self.engine
         d = air.ext_field.degree
         n = air.trace_length
         w = air.trace_info.width
@@ -667,16 +697,15 @@ class GoldilocksProver(Prover):
         num_cols = air.context.num_constraint_composition_columns()
         n_t = air.context.num_transition_constraints
         n_b = air.context.num_assertions
-        hasher = self.hasher
-        h = _device_hasher(hasher)
-        merge, draw = dc.coin_bundle(coin_kind, d, "f64")
+        h = self._device_hasher()
+        merge, draw = dc.coin_bundle(coin_kind, d, eng.NAME)
         draw_k = dc.make_draw_k(draw)
         method_c = _BATCH_NAMES[int(air.options.batching_constraints)]
         method_d = _BATCH_NAMES[int(air.options.batching_deep)]
 
         # 1 -- trace commit
         main_polys, main_lde, m_leaves, m_levels = _commit_pipeline(
-            main_dev, n, offset, blowup, part.partition_size(w, 1), hasher)
+            eng, main_dev, n, offset, blowup, part.partition_size(w, 1), h)
         seed = merge(seed0, m_levels[-1])
         # 2 -- constraint composition coefficients, constraint evaluation
         ccs_all, _ = draw_k(seed, n_t + n_b, method_c)
@@ -684,15 +713,16 @@ class GoldilocksProver(Prover):
                                                boundary, seq)
         # 3 -- composition commitment
         comp_columns, comp_lde, c_leaves, c_levels = _comp_commit_pipeline(
-            ce_column, ce, n, offset, blowup, num_cols,
-            part.partition_size(num_cols, d) * d, hasher)
+            eng, ce_column, ce, n, offset, blowup, num_cols,
+            part.partition_size(num_cols, d) * d, h)
         del ce_column
         seed = merge(seed, c_levels[-1])
         # 4 -- OOD point, evaluations, reseed with their hash
         z_row, _ = draw(seed)
         z = z_row[0]
-        g_trace = F64.get_root_of_unity(n.bit_length() - 1)
-        main_pair, comp_pair = _ood_pairs(main_polys, comp_columns, z, g_trace)
+        g_trace = air.base.get_root_of_unity(n.bit_length() - 1)
+        main_pair, comp_pair = _ood_pairs(eng, main_polys, comp_columns, z,
+                                          g_trace)
         merged = torch.cat([main_pair[:, 0], comp_pair[:, 0],
                             main_pair[:, 1], comp_pair[:, 1]])
         flat = merged.reshape(1, -1)
@@ -707,7 +737,7 @@ class GoldilocksProver(Prover):
                                             g_trace, main_pair, comp_pair,
                                             deep_all)
         fri_outs, rem_coeffs, seed = _fri_phase_body(
-            deep_evals, seed, merge, draw, hasher, n_fold, n_layers, offset)
+            eng, deep_evals, seed, merge, draw, h, n_fold, n_layers, offset)
         return (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
                 main_pair, comp_pair, fri_outs, rem_coeffs, seed)
 
@@ -716,13 +746,14 @@ class GoldilocksProver(Prover):
                       comp_lde) -> Proof:
         """Remainder commit, grinding, query positions, and the batched
         query gathers + proof assembly."""
+        eng = self.engine
         ext = air.ext_field
         lde_size = air.lde_domain_size
         n_fold = air.options.fri_folding_factor
 
         keep = rem_n // air.options.blowup_factor
-        rem_np = gl.to_u64(rem_coeffs[:keep])[::-1]
-        remainder_poly = [tuple(int(x) for x in row) for row in rem_np]
+        rem_np = eng.to_u64(rem_coeffs[:keep])[::-1]
+        remainder_poly = [eng.elements(row) for row in rem_np]
         channel.commit_fri_layer(self.hasher.hash_elements(remainder_poly, ext))
         phases.mark("compute_fri_layers")
 
@@ -738,19 +769,18 @@ class GoldilocksProver(Prover):
         domain_size = lde_size
         for tree, transposed in fri_layers:
             positions = fold_positions(positions, domain_size, n_fold)
-            layer_starts.append((tree, positions,
-                                 tree.prove_batch_start(positions, gb),
+            layer_starts.append((tree, tree.prove_batch_start(positions, gb),
                                  gb.add(transposed, positions)))
             domain_size //= n_fold
-        q_starts = [(main_tree, Field(F64, 1), main_tree.prove_batch_start(
+        q_starts = [(main_tree, Field(air.base, 1), main_tree.prove_batch_start(
                         query_positions, gb), gb.add(main_lde, query_positions)),
                     (comp_tree, ext, comp_tree.prove_batch_start(
                         query_positions, gb), gb.add(comp_lde, query_positions))]
 
         proof_layers = []
-        for tree, positions, st, rows_slot in layer_starts:
+        for tree, st, rows_slot in layer_starts:
             _, batch_proof = tree.prove_batch_finish(st)
-            query_values = [[tuple(int(x) for x in e) for e in row]
+            query_values = [list(eng.elements(row))
                             for row in gb.get(rows_slot)]
             proof_layers.append(
                 FriProofLayer.new(ext, query_values, batch_proof.to_bytes()))
@@ -761,10 +791,10 @@ class GoldilocksProver(Prover):
             _, batch_proof = tree.prove_batch_finish(st)
             rows = []
             for row in gb.get(rows_slot):
-                if row.ndim == 1:  # base field row (w,)
-                    rows.append([(int(v),) for v in row])
+                if row.ndim == 1 + len(eng.ELEM):  # base field row (w,)
+                    rows.append([(v,) for v in eng.elements(row)])
                 else:  # (w, d)
-                    rows.append([tuple(int(x) for x in e) for e in row])
+                    rows.append(list(eng.elements(row)))
             queries.append(Queries.new(batch_proof.to_bytes(), rows, field))
 
         proof = channel.build_proof(queries[:-1], queries[-1], fri_proof,
@@ -781,6 +811,7 @@ class GoldilocksProver(Prover):
         constraint's ``cc`` the index of its coefficient among the boundary
         ones; ``seq`` holds each group's sequence coefficients
         (``_seq_coeffs``)."""
+        eng = self.engine
         dev = self.device
         d = air.ext_field.degree
         ce_blowup = air.ce_blowup_factor
@@ -795,32 +826,32 @@ class GoldilocksProver(Prover):
         frame = EvaluationFrame(
             [main_ce[:, c : c + 1] for c in range(main_ce.shape[1])],
             [main_ce_next[:, c : c + 1] for c in range(main_ce.shape[1])])
-        main_evals = air.evaluate_transition(frame, periodic,
-                                             TorchOps(Field(F64, 1), dev))
-        combined = torch.zeros((ce, d), dtype=I64, device=dev)
+        main_evals = air.evaluate_transition(
+            frame, periodic, ops_for(Field(air.base, 1), dev))
+        combined = torch.zeros((ce, d) + eng.ELEM, dtype=I64, device=dev)
         for i, ev in enumerate(main_evals):
-            combined = gl.ext_add(combined, gl.gl_mul(ev, t_ccs[i][None, :]))
-        result = gl.ext_mul_base(combined, t_div_inv)
+            combined = eng.ext_add(combined, eng.mul(ev, t_ccs[i][None]))
+        result = eng.ext_mul_base(combined, t_div_inv)
 
         for g, (div_inv, scales), q in zip(boundary.main_groups, group_consts,
                                            seq):
-            numer = torch.zeros((ce, d), dtype=I64, device=dev)
+            numer = torch.zeros((ce, d) + eng.ELEM, dtype=I64, device=dev)
             singles = [c for c in g.constraints if len(c.poly) == 1]
             seqs = [c for c in g.constraints if len(c.poly) > 1]
             for c in singles:
-                diff = gl.gl_sub(main_ce[:, c.column], gl.const(c.poly[0][0]))
-                numer = gl.ext_add(numer, gl.gl_mul(diff[:, None],
-                                                    b_ccs[c.cc][None, :]))
+                diff = eng.sub(main_ce[:, c.column], eng.const(c.poly[0][0]))
+                numer = eng.ext_add(numer, eng.mul(diff[:, None],
+                                                   b_ccs[c.cc][None]))
             if seqs:
                 # batched sequence value polys: the zero-padded (ce, k)
                 # coefficient block, each column scaled by its
                 # (offset·poly_offset)^i series, one NTT
-                b_vals = gl.ntt_evaluate(gl.gl_mul(q, scales), ce)
+                b_vals = eng.ntt_evaluate(eng.mul(q, scales), ce)
                 for j, c in enumerate(seqs):
-                    diff = gl.gl_sub(main_ce[:, c.column], b_vals[:, j])
-                    numer = gl.ext_add(numer, gl.gl_mul(
-                        diff[:, None], b_ccs[c.cc][None, :]))
-            result = gl.ext_add(result, gl.ext_mul_base(numer, div_inv))
+                    diff = eng.sub(main_ce[:, c.column], b_vals[:, j])
+                    numer = eng.ext_add(numer, eng.mul(diff[:, None],
+                                                       b_ccs[c.cc][None]))
+            result = eng.ext_add(result, eng.ext_mul_base(numer, div_inv))
         return result
 
     def _seq_coeffs(self, air, boundary):
@@ -834,19 +865,20 @@ class GoldilocksProver(Prover):
             if not seqs:
                 out.append(None)
                 continue
-            q = np.zeros((ce, len(seqs)), dtype=np.int64)
+            q = np.zeros((ce, len(seqs)), dtype=object)
             for j, c in enumerate(seqs):
-                q[: len(c.poly), j] = [gl.const(v[0]) for v in c.poly]
-            out.append(torch.from_numpy(q).to(self.device))
+                q[: len(c.poly), j] = [int(v[0]) for v in c.poly]
+            out.append(self.engine.to_device(q, self.device))
         return out
 
     def _ce_consts(self, air, boundary):
         """Per-structure CE-domain constants (divisor inverses, sequence
         scales, periodic columns), built once per AIR shape and device."""
+        eng = self.engine
         ce = air.context.ce_domain_size
         n = air.trace_length
         offset = air.domain_offset
-        p = gl.P
+        p = eng.P
         periodic_polys = air.get_periodic_column_polys()
         key = (type(air), n, ce, air.context.num_transition_exemptions,
                tuple((tuple(g.divisor.numerator),
@@ -862,20 +894,22 @@ class GoldilocksProver(Prover):
         for poly in periodic_polys:
             coeffs = np.array(poly, dtype=object)[:, None]
             vals = host_ntt.evaluate_poly_with_offset(
-                F64, coeffs, pow(offset, n // len(poly), p), air.ce_blowup_factor)
-            col = gl.to_device(vals, dev)
-            periodic.append(col.repeat(ce // col.shape[0], 1))
-        xs = gl.power_series(F64.get_root_of_unity(ce.bit_length() - 1), ce,
-                             dev, offset)
+                air.base, coeffs, pow(offset, n // len(poly), p),
+                air.ce_blowup_factor)
+            col = eng.to_device(vals, dev)  # (len·ce_blowup, 1)
+            periodic.append(col.repeat((ce // col.shape[0],)
+                                       + (1,) * (col.ndim - 1)))
+        xs = eng.power_series(air.base.get_root_of_unity(ce.bit_length() - 1),
+                              ce, dev, offset)
         divisor = ConstraintDivisor.from_transition(
-            F64, n, air.context.num_transition_exemptions)
-        t_div_inv = _transition_divisor_inv(xs, n, divisor.exemptions)
+            air.base, n, air.context.num_transition_exemptions)
+        t_div_inv = _transition_divisor_inv(eng, xs, n, divisor.exemptions)
         group_consts = []
         for g in boundary.main_groups:
-            div_inv = _boundary_divisor_inv(xs, *g.divisor.numerator[0])
+            div_inv = _boundary_divisor_inv(eng, xs, *g.divisor.numerator[0])
             seqs = [c for c in g.constraints if len(c.poly) > 1]
-            scales = (torch.stack([gl.power_series(offset * c.poly_offset % p,
-                                                   ce, dev) for c in seqs],
+            scales = (torch.stack([eng.power_series(offset * c.poly_offset % p,
+                                                    ce, dev) for c in seqs],
                                   dim=1) if seqs else None)
             group_consts.append((div_inv, scales))
         cache[key] = (t_div_inv, group_consts, periodic, ce)
@@ -883,38 +917,56 @@ class GoldilocksProver(Prover):
 
     def _lde_xs(self, air):
         """The LDE domain offset·h^i on the device (built once per size)."""
+        eng = self.engine
         dev = self.device
         lde_size = air.lde_domain_size
-        h = F64.get_root_of_unity(lde_size.bit_length() - 1)
-        return gl._cached(("pows", h, lde_size, air.domain_offset, str(dev)),
-                          lambda: gl.power_series(h, lde_size, dev,
-                                                  air.domain_offset))
+        h = air.base.get_root_of_unity(lde_size.bit_length() - 1)
+        return eng._cached(("pows", h, lde_size, air.domain_offset, str(dev)),
+                           lambda: eng.power_series(h, lde_size, dev,
+                                                    air.domain_offset))
 
     def _deep_evaluations(self, air, main_lde, comp_lde, z, g_trace: int,
                           main_pair, comp_pair, deep_ccs):
         """DEEP over the LDE domain: C_z(x)/(x−z) + C_gz(x)/(x−z·g), with z,
         the OOD pairs and the coefficients ((w + cols, d), trace first) on
         the device."""
+        eng = self.engine
         dev = self.device
         d = air.ext_field.degree
         lde_size = main_lde.shape[0]
         xs = self._lde_xs(air)
         # adjusted OOD constants: cc_i · T_i(z), cc_i · T_i(z·g)
-        adj_z = gl.ext_mul(torch.cat([main_pair[:, 0], comp_pair[:, 0]]),
-                           deep_ccs)
-        adj_gz = gl.ext_mul(torch.cat([main_pair[:, 1], comp_pair[:, 1]]),
+        adj_z = eng.ext_mul(torch.cat([main_pair[:, 0], comp_pair[:, 0]]),
                             deep_ccs)
+        adj_gz = eng.ext_mul(torch.cat([main_pair[:, 1], comp_pair[:, 1]]),
+                             deep_ccs)
 
-        comp_z = torch.zeros((lde_size, d), dtype=I64, device=dev)
-        comp_gz = torch.zeros((lde_size, d), dtype=I64, device=dev)
-        terms = [gl.gl_mul(main_lde[:, c : c + 1], deep_ccs[c][None, :])
+        comp_z = torch.zeros((lde_size, d) + eng.ELEM, dtype=I64, device=dev)
+        comp_gz = torch.zeros((lde_size, d) + eng.ELEM, dtype=I64, device=dev)
+        terms = [eng.mul(main_lde[:, c : c + 1], deep_ccs[c][None])
                  for c in range(main_lde.shape[1])]
         w = len(terms)
-        terms += [gl.ext_mul(comp_lde[:, j],
-                             deep_ccs[w + j].expand(lde_size, d))
+        terms += [eng.ext_mul(comp_lde[:, j],
+                              deep_ccs[w + j].expand_as(comp_lde[:, j]))
                   for j in range(comp_lde.shape[1])]
         for idx, term in enumerate(terms):
-            comp_z = gl.ext_add(comp_z, gl.ext_sub(term, adj_z[idx]))
-            comp_gz = gl.ext_add(comp_gz, gl.ext_sub(term, adj_gz[idx]))
-        zg = gl.gl_mul(z, gl.const(g_trace))
-        return _deep_combine(comp_z, comp_gz, z[None], zg[None], xs)
+            comp_z = eng.ext_add(comp_z, eng.ext_sub(term, adj_z[idx]))
+            comp_gz = eng.ext_add(comp_gz, eng.ext_sub(term, adj_gz[idx]))
+        zg = eng.mul(z, eng.const(g_trace))
+        return _deep_combine(eng, comp_z, comp_gz, z[None], zg[None], xs)
+
+
+class GoldilocksProver(DeviceProver):
+    """Drop-in Prover for f64 AIRs with Rp64_256, RpJive64_256, BLAKE3 or
+    SHA3 commitments. Subclass or wrap an existing prover class via
+    ``accelerate``; pass ``device=`` (default "cuda") to choose where the
+    pipeline runs."""
+
+    engine = gl
+
+    def _device_hasher(self) -> DeviceHasher:
+        return _device_hasher(self.hasher)
+
+    def _routes(self):
+        return (_RESIDENT_ON_F64, _FUSED_FRI_ON, _RESIDENT_LIMIT_F64,
+                _FRI_FUSE_LIMIT_F64)

@@ -3,22 +3,13 @@ with BLAKE3 or SHA3 commitments: the port of winterfell_tpu/prover/
 device_limb.py for its f128 engine.
 
 The reference runs 12 of its 13 CLI examples over f128 with BLAKE3
-commitments (winterfell_tpu/examples/cli.py:41-140). The same 8-step protocol
-as the host :class:`winterfell_tpu_torch.prover.Prover`, with every
-domain-sized step on a torch device through ``ops/f128.py`` (elements are
-(..., 2) int64 tensors of (lo, hi) words, extension elements (..., d, 2)):
-
-- trace and composition interpolation + coset LDE: the tensor NTT (B13n);
-- row hashing and Merkle levels: the BLAKE3 / SHA3 kernels of the f64
-  prover (B10, B11), reading each LDE row of w elements in place as 4w u32
-  words, the elements' little-endian bytes; PartitionOptions chunking
-  (row_matrix.rs:184-229) as there;
-- constraint evaluation: the AIR's own ``evaluate_transition`` run with
-  :class:`~winterfell_tpu_torch.ops.torch_ops.TorchOpsF128` over the whole
-  CE domain, periodic columns included;
-- DEEP composition: the pointwise rational form with one paired extension
-  inversion, value-identical to the reference's synthetic division;
-- FRI: per-layer transpose, hash, Merkle levels and fold.
+commitments (winterfell_tpu/examples/cli.py:41-140). The pipeline is the f64
+prover's (:class:`~winterfell_tpu_torch.prover.device.DeviceProver`) over the
+f128 engine ``ops/f128.py``: elements are (..., 2) int64 tensors of (lo, hi)
+words, extension elements (..., d, 2); every field op is one B13 launch and
+every NTT stage one B13n launch (csrc/f128.cu). Row hashing reads each LDE
+row of w elements in place as 4w u32 words, the elements' little-endian
+bytes, with the f64 prover's BLAKE3 / SHA3 kernels (B10, B11).
 
 Routes, dispatched exactly as the JAX LimbFieldProver.prove does
 (device_limb.py:606-616), under the same switches, all giving the host
@@ -33,47 +24,16 @@ prover's proof bytes (tests/test_torch_f128_prover.py):
   phase with the coin on the device (``WINTER_RESIDENT=0``, or a larger
   LDE, up to ``_FRI_FUSE_LIMIT``);
 - **phased + host coin** (``WINTER_FUSED_FRI=0`` as well, or no FRI layer).
-
-Grinding, query positions and the batched query gathers stay on the host.
-The Merkle trees, the query gathers and the one-copy pulls are the f64
-prover's (``prover/device.py``). Entry points run on the card unless the
-caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import os
 
-import numpy as np
-import torch
-
-from ..air.air import EvaluationFrame
-from ..air.divisor import ConstraintDivisor
-from ..air.proof import FriProof, FriProofLayer, OodFrame, Proof, Queries
 from ..crypto.hashers import HASHERS
-from ..fri import FriOptions, fold_positions
-from ..math import ntt as host_ntt
-from ..math.fields import Field
-from ..ops import device_coin as dc
-from ..ops import f128 as f128_eng
+from ..ops import f128
 from ..ops.device_hashers import DEVICE_HASHERS, DeviceHasher
-from ..ops.torch_ops import TorchOpsF128
-from ..ops.words import rows_from_u64
-from ..utils import tracing
-from . import Prover
-from .channel import ProverChannel
-from .device import (
-    _BATCH_NAMES,
-    _OOD_BYTES_LIMIT,
-    PrehashedMerkleTree,
-    _GatherBatch,
-    _hash_rows_bytes,
-    _pull_small,
-    _u64_rows,
-    resolve_device,
-)
-
-I64 = torch.int64
+from .device import DeviceProver
 
 # The JAX package's route switches and limits (winterfell_tpu/prover/
 # device_limb.py:96, :459-465), read from the same variables.
@@ -83,161 +43,11 @@ _FUSED_FRI_ON = os.environ.get("WINTER_FUSED_FRI", "1") not in ("", "0")
 _RESIDENT_ON = os.environ.get("WINTER_RESIDENT", "1") not in ("", "0")
 
 
-def _ints(pairs: np.ndarray):
-    """(..., 2) uint64 words -> nested tuples of Python ints, one level less
-    deep (a (d, 2) array -> a d-tuple)."""
-    if pairs.ndim == 1:
-        return int(pairs[0]) | (int(pairs[1]) << 64)
-    return tuple(_ints(x) for x in pairs)
-
-
-def _ext_tensor(eng, values, device) -> torch.Tensor:
-    """(k, d, 2) tensor from a list of extension tuples."""
-    return eng.to_device(np.array([list(e) for e in values], dtype=object),
-                         device)
-
-
-def _ood_lists(pair: np.ndarray):
-    """(k, 2, d, 2) uint64 OOD pair -> (values at z, values at z·g)."""
-    return [_ints(row[0]) for row in pair], [_ints(row[1]) for row in pair]
-
-
-def _hash_rows(rows, psize: int, h: DeviceHasher):
-    """Byte-hasher row hashing of (m, ..., 2) element rows: each row's
-    little-endian element bytes, chunked by ``psize`` base elements
-    (PartitionOptions) as the f64 prover chunks its rows."""
-    return _hash_rows_bytes(rows.reshape(rows.shape[0], -1), 2 * psize, h)
-
-
-def _commit_pipeline(eng, matrix, n: int, offset: int, blowup: int,
-                     psize: int, h: DeviceHasher):
-    """Interpolate → coset LDE → row hash → Merkle levels."""
-    polys = eng.ntt_interpolate(matrix, n)
-    lde = eng.ntt_evaluate_with_offset(polys, n, offset, blowup)
-    leaves = _hash_rows(lde, psize, h)
-    return polys, lde, leaves, h.merkle_levels(leaves)
-
-
-def _comp_commit_pipeline(eng, ce_column, ce: int, n: int, offset: int,
-                          blowup: int, num_cols: int, psize: int,
-                          h: DeviceHasher):
-    """Composition commitment: iNTT the (ce, d, 2) CE column over its coset,
-    split the first num_cols trace-length coefficient chunks into columns
-    (composition_poly.rs:55-85), then LDE, hash and Merkle levels."""
-    coeffs = eng.ntt_interpolate_with_offset(ce_column, ce, offset)
-    d = ce_column.shape[1]
-    comp_columns = coeffs[: num_cols * n].reshape(num_cols, n, d, 2).transpose(
-        0, 1).contiguous()
-    lde = eng.ntt_evaluate_with_offset(comp_columns, n, offset, blowup)
-    leaves = _hash_rows(lde, psize, h)
-    return comp_columns, lde, leaves, h.merkle_levels(leaves)
-
-
-def _fri_layer_commit(evaluations, n_fold: int, h: DeviceHasher):
-    """Transpose a FRI layer into N-value rows, hash, Merkle levels
-    (fri/src/prover/mod.rs:202-222)."""
-    n, d = evaluations.shape[0], evaluations.shape[1]
-    rows = n // n_fold
-    transposed = evaluations.reshape(n_fold, rows, d, 2).transpose(
-        0, 1).contiguous()
-    leaves = _hash_rows(transposed, n_fold * d, h)
-    return transposed, leaves, h.merkle_levels(leaves)
-
-
-def _fri_phase_body(eng, deep_evals, seed, merge, draw, h: DeviceHasher,
-                    n_fold: int, n_layers: int, offset: int):
-    """The FRI commit phase with the coin on the device (device_limb.py:
-    474-491): per layer transpose, hash, Merkle levels, reseed with the
-    root, draw α, fold; then the remainder interpolation. Returns
-    ((transposed, leaves, levels) per layer, remainder coefficients, seed)."""
-    evaluations = deep_evals
-    outs = []
-    for _ in range(n_layers):
-        transposed, leaves, levels = _fri_layer_commit(evaluations, n_fold, h)
-        seed = merge(seed, levels[-1])
-        alpha, _ = draw(seed)
-        evaluations = eng.fri_fold(evaluations, n_fold, offset, alpha[0])
-        outs.append((transposed, leaves, levels))
-    rem = eng.ntt_interpolate_with_offset(evaluations, evaluations.shape[0],
-                                          offset)
-    return outs, rem, seed
-
-
-def _eval_cols_pair(eng, polys, pows2):
-    """Every column polynomial at z and z·g at once: polys (n, k, 2) base or
-    (n, k, d, 2) ext, pows2 (n, 2, d, 2) → (k, 2, d, 2)
-    (device_limb.py:200-213)."""
-    if polys.ndim == 3:
-        prod = eng.f128_mul(polys[:, :, None, None, :], pows2[:, None])
-    else:
-        prod = eng.ext_mul(polys[:, :, None],
-                           pows2[:, None].expand(polys.shape[:2]
-                                                 + pows2.shape[1:]))
-    return eng.sum0(prod)
-
-
-def _ood_pairs(eng, main_polys, comp_columns, z, g_trace: int):
-    """OOD evaluations of every column at z and z·g for a (d, 2) device z:
-    (main (w, 2, d, 2), composition (cols, 2, d, 2)); the power tables are
-    built on the device from z."""
-    n = main_polys.shape[0]
-    zg = eng.f128_mul(z, g_trace)
-    pows2 = torch.stack([eng.ext_power_table(z, n),
-                         eng.ext_power_table(zg, n)], dim=1)
-    return (_eval_cols_pair(eng, main_polys, pows2),
-            _eval_cols_pair(eng, comp_columns, pows2))
-
-
-def _transition_divisor_inv(eng, xs, n: int, exemptions):
-    """1/(x^n − 1) · Π(x − e) over the CE domain."""
-    inv_num = eng.f128_batch_inv(eng.f128_sub(eng.f128_pow_const(xs, n), 1))
-    exempt = eng.fill(1, xs.shape[:-1], xs.device)
-    for e in exemptions:
-        exempt = eng.f128_mul(exempt, eng.f128_sub(xs, eng.const(e)))
-    return eng.f128_mul(inv_num, exempt)
-
-
-def _boundary_divisor_inv(eng, xs, a: int, b0: int):
-    """1/(x^a − b0) over the CE domain."""
-    return eng.f128_batch_inv(eng.f128_sub(eng.f128_pow_const(xs, a),
-                                           eng.const(b0)))
-
-
-def _deep_combine(eng, comp_z, comp_gz, z_arr, zg_arr, xs):
-    """comp_z/(x−z) + comp_gz/(x−z·g) with one paired extension inversion
-    (device_limb.py:543-556)."""
-    d = comp_z.shape[1]
-    xs_ext = torch.cat([xs[:, None], torch.zeros((xs.shape[0], d - 1, 2),
-                                                 dtype=I64, device=xs.device)],
-                       dim=1)
-    den_z = eng.ext_sub(xs_ext, z_arr.expand_as(xs_ext))
-    den_gz = eng.ext_sub(xs_ext, zg_arr.expand_as(xs_ext))
-    # 1/a = inv(ab)·b, 1/b = inv(ab)·a
-    inv_prod = eng.ext_batch_inv(eng.ext_mul(den_z, den_gz))
-    inv_z = eng.ext_mul(inv_prod, den_gz)
-    inv_gz = eng.ext_mul(inv_prod, den_z)
-    return eng.ext_add(eng.ext_mul(comp_z, inv_z), eng.ext_mul(comp_gz, inv_gz))
-
-
-class LimbFieldProver(Prover):
+class LimbFieldProver(DeviceProver):
     """Drop-in Prover for limb-engine fields with BLAKE3 or SHA3
     commitments. Wrap a host prover class with ``accelerate`` on a concrete
     subclass (:class:`F128Prover`); pass ``device=`` (default "cuda") to
     choose where the pipeline runs."""
-
-    engine = None       # the field's tensor engine (ops/f128.py)
-    eng_name = None     # its name for the device coin
-    ops_cls = None      # the AIR engine handle (ops/torch_ops.py)
-
-    def __init__(self, *args, device="cuda", **kwargs):
-        super().__init__(*args, **kwargs)
-        self.device = resolve_device(device)
-
-    @classmethod
-    def accelerate(cls, prover_cls):
-        """Builds a tensor-pipeline subclass of a host Prover class."""
-        return type(f"{cls.__name__[:-6]}{prover_cls.__name__}",
-                    (cls, prover_cls), {})
 
     def _device_hasher(self) -> DeviceHasher:
         """The device record of the hasher: BLAKE3 or SHA3 (Rp62_248, the
@@ -250,511 +60,11 @@ class LimbFieldProver(Prover):
                 "hasher (device row hashing)")
         return h
 
-    def _upload_trace(self, trace) -> torch.Tensor:
-        cache = trace.device_cache() if hasattr(trace, "device_cache") else {}
-        key = ("torch", str(self.device))
-        main_dev = cache.get(key)
-        if main_dev is None:
-            rows = trace.native_rows() if hasattr(trace, "native_rows") else None
-            eng = type(self).engine
-            if rows is not None and rows.ndim == 3:  # (n, w, 2) word pairs
-                main_dev = torch.from_numpy(
-                    np.ascontiguousarray(rows).view(np.int64)).to(self.device)
-            else:
-                main_dev = eng.to_device(trace.main_segment(), self.device)
-            cache[key] = main_dev
-        return main_dev
-
-    def prove(self, trace) -> Proof:
-        eng = type(self).engine
-        pub_inputs = self.get_pub_inputs(trace)
-        air = self.air_class(trace.info(), pub_inputs, self.options)
-        assert air.base.p == eng.P, (
-            f"{type(self).__name__} requires the {air.base.name} base field")
-        h = self._device_hasher()
-        assert not air.trace_info.is_multi_segment, (
-            f"{type(self).__name__} proves single-segment traces")
-        channel = ProverChannel(air, air.pub_inputs_to_elements(), self.hasher)
-        phases = tracing.Phases(f"device_prove_{air.base.name}")
-        fri_opts = FriOptions(air.options.blowup_factor,
-                              air.options.fri_folding_factor,
-                              air.options.fri_remainder_max_degree)
-        lde_size = air.lde_domain_size
-        n_layers = fri_opts.num_fri_layers(lde_size)
-        rem_n = lde_size // fri_opts.folding_factor**n_layers
-        # the JAX dispatch (device_limb.py:606-616) for one segment
-        coin_kind = h.name if h.coin else None
-        ood_bytes = (2 * (air.trace_info.width
-                          + air.context.num_constraint_composition_columns())
-                     * air.ext_field.degree * air.base.element_bytes)
-        if (_RESIDENT_ON and coin_kind is not None and n_layers > 0
-                and rem_n >= 2 and lde_size <= _LEVEL_FUSE
-                and ood_bytes <= _OOD_BYTES_LIMIT):
-            return self._prove_resident(air, trace, channel, phases, fri_opts,
-                                        n_layers, rem_n, coin_kind)
-        return self._prove_phased(air, trace, channel, phases, fri_opts,
-                                  n_layers, rem_n, coin_kind)
-
-    # ------------------------------------------------------------------
-    # phased route (device_limb.py:618-750)
-    # ------------------------------------------------------------------
-
-    def _prove_phased(self, air, trace, channel, phases, fri_opts,
-                      n_layers: int, rem_n: int, coin_kind) -> Proof:
-        eng = type(self).engine
-        dev = self.device
-        h = self._device_hasher()
-        ext = air.ext_field
-        d = ext.degree
-        n = air.trace_length
-        blowup = air.options.blowup_factor
-        offset = air.domain_offset
-        lde_size = air.lde_domain_size
-        ce = air.context.ce_domain_size
-        part = air.options.partition_options
-
-        # 1 ----- trace commitment ------------------------------------------
-        main_dev = tracing.sync(self._upload_trace(trace))
-        phases.mark("commit_main_upload")
-        w = main_dev.shape[1]
-        main_polys, main_lde, leaves, levels = _commit_pipeline(
-            eng, main_dev, n, offset, blowup, part.partition_size(w, 1), h)
-        main_tree = PrehashedMerkleTree(leaves, levels, self.hasher)
-        channel.commit_trace(main_tree.root)
-        phases.mark("commit_to_main_trace_segment", lde_domain_size=lde_size)
-
-        # 2 ----- constraint evaluation -------------------------------------
-        ccs = channel.get_constraint_composition_coeffs()
-        boundary = air.get_boundary_constraints(
-            None, list(range(air.context.num_assertions)))
-        ce_column = tracing.sync(self._evaluate_constraints(
-            air, main_lde, _ext_tensor(eng, ccs.transition + ccs.boundary,
-                                       dev),
-            boundary, self._seq_coeffs(air, boundary)))
-        phases.mark("evaluate_constraints", ce_domain_size=ce)
-
-        # 3 ----- composition commitment ------------------------------------
-        num_cols = air.context.num_constraint_composition_columns()
-        comp_columns, comp_lde, leaves, levels = _comp_commit_pipeline(
-            eng, ce_column, ce, n, offset, blowup, num_cols,
-            part.partition_size(num_cols, d) * d, h)
-        del ce_column
-        comp_tree = PrehashedMerkleTree(leaves, levels, self.hasher)
-        channel.commit_constraints(comp_tree.root)
-        phases.mark("commit_to_constraint_evaluations")
-
-        # 4 ----- OOD evaluations + DEEP ------------------------------------
-        z = _ext_tensor(eng, [channel.get_ood_point()], dev)[0]
-        g_trace = air.base.get_root_of_unity(n.bit_length() - 1)
-        main_pair, comp_pair = _ood_pairs(eng, main_polys, comp_columns, z,
-                                          g_trace)
-        main_np, comp_np = _pull_small([main_pair, comp_pair])
-        trace_cur, trace_nxt = _ood_lists(main_np)
-        quot_cur, quot_nxt = _ood_lists(comp_np)
-        channel.send_ood_evaluations(trace_cur, trace_nxt, quot_cur, quot_nxt)
-        phases.mark("ood_evaluations")
-        deep_ccs = channel.get_deep_composition_coeffs()
-        deep_evaluations = tracing.sync(self._deep_evaluations(
-            air, main_lde, comp_lde, z, g_trace, main_pair, comp_pair,
-            _ext_tensor(eng, deep_ccs.trace + deep_ccs.constraints, dev)))
-        phases.mark("build_deep_composition_poly")
-
-        # 6 ----- FRI layers -------------------------------------------------
-        n_fold = fri_opts.folding_factor
-        fri_layers = []  # (tree, transposed (rows, N, d, 2))
-        if (_FUSED_FRI_ON and n_layers > 0 and coin_kind is not None
-                and rem_n >= 2 and lde_size <= _FRI_FUSE_LIMIT):
-            # the whole commit phase with the coin on the device; the roots
-            # and the seed cross to the host in one copy at its end
-            merge, draw = dc.coin_bundle(coin_kind, d, type(self).eng_name)
-            outs, rem_coeffs, seed = _fri_phase_body(
-                eng, deep_evaluations,
-                dc.seed_tensor(channel.public_coin.seed, dev, coin_kind),
-                merge, draw, h, n_fold, n_layers, offset)
-            pulled = _pull_small([lv[-1] for _, _, lv in outs] + [seed])
-            for (transposed, leaves, levels), root in zip(outs, pulled):
-                tree = PrehashedMerkleTree(leaves, levels, self.hasher,
-                                           _u64_rows(root)[0].tobytes())
-                channel.commitments.raw += tree.root  # reseeded on the device
-                fri_layers.append((tree, transposed))
-            channel.public_coin.seed = dc.u64_to_seed(pulled[-1])
-            channel.public_coin.counter = 0
-            phases.mark("fri_layers_fused", num_layers=n_layers)
-        else:
-            evaluations = deep_evaluations
-            for _ in range(n_layers):
-                transposed, leaves, levels = _fri_layer_commit(
-                    evaluations, n_fold, h)
-                tree = PrehashedMerkleTree(leaves, levels, self.hasher)
-                channel.commit_fri_layer(tree.root)
-                alpha = _ext_tensor(eng, [channel.draw_fri_alpha()], dev)[0]
-                evaluations = eng.fri_fold(evaluations, n_fold, offset, alpha)
-                fri_layers.append((tree, transposed))
-            rem_coeffs = eng.ntt_interpolate_with_offset(evaluations, rem_n,
-                                                         offset)
-        return self._finish_proof(air, channel, phases, rem_n, rem_coeffs,
-                                  fri_layers, main_tree, main_lde, comp_tree,
-                                  comp_lde)
-
-    # ------------------------------------------------------------------
-    # resident route (device_limb.py:834-1070)
-    # ------------------------------------------------------------------
-
-    def _prove_resident(self, air, trace, channel, phases, fri_opts,
-                        n_layers: int, rem_n: int, coin_kind: str) -> Proof:
-        """Steps 1-6 on the device with the Fiat–Shamir coin there too; the
-        host uploads the trace and the per-proof constants, pulls the small
-        results in one copy and resumes the channel where the phased route
-        would stand (roots appended, OOD frame set, seed from the device,
-        counter 0)."""
-        ext = air.ext_field
-        dev = self.device
-        main_dev = tracing.sync(self._upload_trace(trace))
-        phases.mark("commit_main_upload")
-
-        boundary = air.get_boundary_constraints(
-            None, list(range(air.context.num_assertions)))
-        seq = self._resident_consts(air, boundary, fri_opts, n_layers)
-        seed0 = dc.seed_tensor(channel.public_coin.seed, dev, coin_kind)
-        (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
-         main_pair, comp_pair, fri_outs, rem_coeffs, seed) = \
-            self._resident_run(air, boundary, seq, main_dev, seed0,
-                               fri_opts.folding_factor, n_layers, coin_kind)
-
-        pulled = _pull_small([m_levels[-1], c_levels[-1]]
-                             + [lv[-1] for _, _, lv in fri_outs]
-                             + [main_pair, comp_pair, seed])
-        roots = [_u64_rows(r)[0].tobytes() for r in pulled[: 2 + n_layers]]
-        main_tree = PrehashedMerkleTree(m_leaves, m_levels, self.hasher,
-                                        roots[0])
-        channel.commitments.raw += main_tree.root  # reseeds ran on device
-        comp_tree = PrehashedMerkleTree(c_leaves, c_levels, self.hasher,
-                                        roots[1])
-        channel.commitments.raw += comp_tree.root
-        trace_cur, trace_nxt = _ood_lists(pulled[2 + n_layers])
-        quot_cur, quot_nxt = _ood_lists(pulled[3 + n_layers])
-        channel.ood_frame = OodFrame.new(ext, trace_cur, trace_nxt, quot_cur,
-                                         quot_nxt)
-        fri_layers = []
-        for (transposed, leaves, levels), root in zip(fri_outs, roots[2:]):
-            tree = PrehashedMerkleTree(leaves, levels, self.hasher, root)
-            channel.commitments.raw += tree.root
-            fri_layers.append((tree, transposed))
-        channel.public_coin.seed = dc.u64_to_seed(pulled[-1])
-        channel.public_coin.counter = 0
-        phases.mark("resident_pipeline", lde_domain_size=air.lde_domain_size)
-        return self._finish_proof(air, channel, phases, rem_n, rem_coeffs,
-                                  fri_layers, main_tree, main_lde, comp_tree,
-                                  comp_lde)
-
-    def _resident_consts(self, air, boundary, fri_opts, n_layers: int):
-        """Builds, before the device run, every table the run reads that
-        needs a host-to-device copy or is fixed per proof shape (the JAX
-        make_consts, device_limb.py:1034-1067): NTT plans, offset powers, the
-        CE and DEEP domain constants, the FRI inverse offset powers; returns
-        the per-proof sequence-assertion coefficients."""
-        eng = type(self).engine
-        dev = self.device
-        n = air.trace_length
-        lde_size = air.lde_domain_size
-        ce = air.context.ce_domain_size
-        offset = air.domain_offset
-        n_fold = fri_opts.folding_factor
-        rem_n = lde_size // n_fold**n_layers
-        for size, inverse in ((n, True), (lde_size, False), (ce, True),
-                              (ce, False), (n_fold, True), (rem_n, True)):
-            eng.ntt_plan(size, inverse, dev)
-        eng.lde_offset_powers(n, offset, dev)
-        eng.interp_offset_powers(ce, offset, dev)
-        eng.interp_offset_powers(rem_n, offset, dev)
-        for i in range(n_layers):
-            eng.fri_inv_offset_powers(lde_size // n_fold**i, n_fold, offset,
-                                      dev)
-        self._ce_consts(air, boundary)
-        self._lde_xs(air)
-        return self._seq_coeffs(air, boundary)
-
-    def _resident_run(self, air, boundary, seq, main_dev, seed0, n_fold: int,
-                      n_layers: int, coin_kind: str):
-        """The device part of the resident route: only launches, no host
-        read (device_limb.py:965-1030)."""
-        eng = type(self).engine
-        d = air.ext_field.degree
-        n = air.trace_length
-        w = air.trace_info.width
-        blowup = air.options.blowup_factor
-        offset = air.domain_offset
-        ce = air.context.ce_domain_size
-        part = air.options.partition_options
-        num_cols = air.context.num_constraint_composition_columns()
-        n_t = air.context.num_transition_constraints
-        n_b = air.context.num_assertions
-        h = self._device_hasher()
-        merge, draw = dc.coin_bundle(coin_kind, d, type(self).eng_name)
-        draw_k = dc.make_draw_k(draw, type(self).eng_name)
-        method_c = _BATCH_NAMES[int(air.options.batching_constraints)]
-        method_d = _BATCH_NAMES[int(air.options.batching_deep)]
-
-        # 1 -- trace commit
-        main_polys, main_lde, m_leaves, m_levels = _commit_pipeline(
-            eng, main_dev, n, offset, blowup, part.partition_size(w, 1), h)
-        seed = merge(seed0, m_levels[-1])
-        # 2 -- constraint composition coefficients, constraint evaluation
-        ccs_all, _ = draw_k(seed, n_t + n_b, method_c)
-        ce_column = self._evaluate_constraints(air, main_lde, ccs_all,
-                                               boundary, seq)
-        # 3 -- composition commitment
-        comp_columns, comp_lde, c_leaves, c_levels = _comp_commit_pipeline(
-            eng, ce_column, ce, n, offset, blowup, num_cols,
-            part.partition_size(num_cols, d) * d, h)
-        del ce_column
-        seed = merge(seed, c_levels[-1])
-        # 4 -- OOD point, evaluations, reseed with the hash of their bytes
-        z_row, _ = draw(seed)
-        z = z_row[0]
-        g_trace = air.base.get_root_of_unity(n.bit_length() - 1)
-        main_pair, comp_pair = _ood_pairs(eng, main_polys, comp_columns, z,
-                                          g_trace)
-        merged = torch.cat([main_pair[:, 0], comp_pair[:, 0],
-                            main_pair[:, 1], comp_pair[:, 1]])
-        ood_digest = h.hash_rows(*rows_from_u64(merged.reshape(1, -1)),
-                                 h.digest_words)[0]
-        seed = merge(seed, ood_digest)
-        # 5 -- DEEP composition, 6 -- FRI layers
-        deep_all, _ = draw_k(seed, w + num_cols, method_d)
-        deep_evals = self._deep_evaluations(air, main_lde, comp_lde, z,
-                                            g_trace, main_pair, comp_pair,
-                                            deep_all)
-        fri_outs, rem_coeffs, seed = _fri_phase_body(
-            eng, deep_evals, seed, merge, draw, h, n_fold, n_layers, offset)
-        return (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
-                main_pair, comp_pair, fri_outs, rem_coeffs, seed)
-
-    # ------------------------------------------------------------------
-    # remainder, grinding, queries, proof (device_limb.py:752-828)
-    # ------------------------------------------------------------------
-
-    def _finish_proof(self, air, channel, phases, rem_n: int, rem_coeffs,
-                      fri_layers, main_tree, main_lde, comp_tree,
-                      comp_lde) -> Proof:
-        eng = type(self).engine
-        ext = air.ext_field
-        lde_size = air.lde_domain_size
-        n_fold = air.options.fri_folding_factor
-
-        keep = rem_n // air.options.blowup_factor
-        rem_np = eng.to_u64(rem_coeffs[:keep])[::-1]
-        remainder_poly = [_ints(row) for row in rem_np]
-        channel.commit_fri_layer(self.hasher.hash_elements(remainder_poly, ext))
-        phases.mark("compute_fri_layers")
-
-        # 7 ----- query positions -------------------------------------------
-        channel.grind_query_seed()
-        query_positions = channel.get_query_positions()
-        phases.mark("determine_query_positions")
-
-        # 8 ----- proof assembly: every gather in one batch, one host copy --
-        gb = _GatherBatch()
-        layer_starts = []
-        positions = list(query_positions)
-        domain_size = lde_size
-        for tree, transposed in fri_layers:
-            positions = fold_positions(positions, domain_size, n_fold)
-            layer_starts.append((tree, tree.prove_batch_start(positions, gb),
-                                 gb.add(transposed, positions)))
-            domain_size //= n_fold
-        q_starts = [(main_tree, Field(air.base, 1), main_tree.prove_batch_start(
-                        query_positions, gb), gb.add(main_lde, query_positions)),
-                    (comp_tree, ext, comp_tree.prove_batch_start(
-                        query_positions, gb), gb.add(comp_lde, query_positions))]
-
-        proof_layers = []
-        for tree, st, rows_slot in layer_starts:
-            _, batch_proof = tree.prove_batch_finish(st)
-            query_values = [list(_ints(row)) for row in gb.get(rows_slot)]
-            proof_layers.append(
-                FriProofLayer.new(ext, query_values, batch_proof.to_bytes()))
-        fri_proof = FriProof.new(ext, proof_layers, remainder_poly, 1)
-
-        queries = []
-        for tree, field, st, rows_slot in q_starts:
-            _, batch_proof = tree.prove_batch_finish(st)
-            rows = []
-            for row in gb.get(rows_slot):
-                if row.ndim == 2:  # base field row (w, 2)
-                    rows.append([(_ints(v),) for v in row])
-                else:  # (cols, d, 2)
-                    rows.append(list(_ints(row)))
-            queries.append(Queries.new(batch_proof.to_bytes(), rows, field))
-
-        proof = channel.build_proof(queries[:-1], queries[-1], fri_proof,
-                                    len(query_positions))
-        phases.mark("build_proof_object")
-        return proof
-
-    # ------------------------------------------------------------------
-    # constraint evaluation (device_limb.py:1143-1446, one segment)
-    # ------------------------------------------------------------------
-
-    def _evaluate_constraints(self, air, main_lde, ccs_all, boundary, seq):
-        """Tensor mirror of prover/evaluator.py over the whole CE domain.
-        ``ccs_all`` (n_t + n_b, d, 2) holds the composition coefficients on
-        the device (transition first); ``boundary`` was built with each
-        constraint's ``cc`` the index of its coefficient among the boundary
-        ones; ``seq`` holds each group's sequence coefficients."""
-        eng = type(self).engine
-        dev = self.device
-        d = air.ext_field.degree
-        ce_blowup = air.ce_blowup_factor
-        stride = air.options.blowup_factor // ce_blowup
-        n_t = air.context.num_transition_constraints
-
-        main_ce = main_lde[::stride]
-        main_ce_next = torch.roll(main_ce, -ce_blowup, dims=0)
-        t_ccs, b_ccs = ccs_all[:n_t], ccs_all[n_t:]
-        t_div_inv, group_consts, periodic, ce = self._ce_consts(air, boundary)
-
-        frame = EvaluationFrame(
-            [main_ce[:, c : c + 1] for c in range(main_ce.shape[1])],
-            [main_ce_next[:, c : c + 1] for c in range(main_ce.shape[1])])
-        main_evals = air.evaluate_transition(
-            frame, periodic, type(self).ops_cls(Field(air.base, 1), dev))
-        combined = torch.zeros((ce, d, 2), dtype=I64, device=dev)
-        for i, ev in enumerate(main_evals):
-            combined = eng.ext_add(combined, eng.f128_mul(ev, t_ccs[i][None]))
-        result = eng.ext_mul_base(combined, t_div_inv)
-
-        for g, (div_inv, scales), q in zip(boundary.main_groups, group_consts,
-                                           seq):
-            numer = torch.zeros((ce, d, 2), dtype=I64, device=dev)
-            singles = [c for c in g.constraints if len(c.poly) == 1]
-            seqs = [c for c in g.constraints if len(c.poly) > 1]
-            for c in singles:
-                diff = eng.f128_sub(main_ce[:, c.column],
-                                    eng.const(c.poly[0][0]))
-                numer = eng.ext_add(numer, eng.f128_mul(diff[:, None],
-                                                        b_ccs[c.cc][None]))
-            if seqs:
-                # batched sequence value polys: the zero-padded (ce, k)
-                # coefficient block, each column scaled by its
-                # (offset·poly_offset)^i series, one NTT
-                b_vals = eng.ntt_evaluate(eng.f128_mul(q, scales), ce)
-                for j, c in enumerate(seqs):
-                    diff = eng.f128_sub(main_ce[:, c.column], b_vals[:, j])
-                    numer = eng.ext_add(numer, eng.f128_mul(
-                        diff[:, None], b_ccs[c.cc][None]))
-            result = eng.ext_add(result, eng.ext_mul_base(numer, div_inv))
-        return result
-
-    def _seq_coeffs(self, air, boundary):
-        """Per main boundary group, its sequence assertions' value-polynomial
-        coefficients as a zero-padded (ce, k, 2) device tensor (None without
-        sequences): per-proof values, copied to the device before the run."""
-        eng = type(self).engine
-        ce = air.context.ce_domain_size
-        out = []
-        for g in boundary.main_groups:
-            seqs = [c for c in g.constraints if len(c.poly) > 1]
-            if not seqs:
-                out.append(None)
-                continue
-            q = np.zeros((ce, len(seqs)), dtype=object)
-            for j, c in enumerate(seqs):
-                q[: len(c.poly), j] = [int(v[0]) for v in c.poly]
-            out.append(eng.to_device(q, self.device))
-        return out
-
-    def _ce_consts(self, air, boundary):
-        """Per-structure CE-domain constants (divisor inverses, sequence
-        scales, periodic columns), built once per AIR shape and device."""
-        eng = type(self).engine
-        ce = air.context.ce_domain_size
-        n = air.trace_length
-        offset = air.domain_offset
-        p = eng.P
-        periodic_polys = air.get_periodic_column_polys()
-        key = (type(air), n, ce, air.context.num_transition_exemptions,
-               tuple((tuple(g.divisor.numerator),
-                      tuple((c.column, len(c.poly), c.poly_offset)
-                            for c in g.constraints))
-                     for g in boundary.main_groups),
-               tuple(tuple(poly) for poly in periodic_polys), str(self.device))
-        cache = self.__dict__.setdefault("_ce_cache", {})
-        if key in cache:
-            return cache[key]
-        dev = self.device
-        periodic = []
-        for poly in periodic_polys:
-            coeffs = np.array(poly, dtype=object)[:, None]
-            vals = host_ntt.evaluate_poly_with_offset(
-                air.base, coeffs, pow(offset, n // len(poly), p),
-                air.ce_blowup_factor)
-            col = eng.to_device(vals, dev)  # (len·ce_blowup, 1, 2)
-            periodic.append(col.repeat(ce // col.shape[0], 1, 1))
-        xs = eng.power_series(air.base.get_root_of_unity(ce.bit_length() - 1),
-                              ce, dev, offset)
-        divisor = ConstraintDivisor.from_transition(
-            air.base, n, air.context.num_transition_exemptions)
-        t_div_inv = _transition_divisor_inv(eng, xs, n, divisor.exemptions)
-        group_consts = []
-        for g in boundary.main_groups:
-            div_inv = _boundary_divisor_inv(eng, xs, *g.divisor.numerator[0])
-            seqs = [c for c in g.constraints if len(c.poly) > 1]
-            scales = (torch.stack([eng.power_series(offset * c.poly_offset % p,
-                                                    ce, dev) for c in seqs],
-                                  dim=1) if seqs else None)
-            group_consts.append((div_inv, scales))
-        cache[key] = (t_div_inv, group_consts, periodic, ce)
-        return cache[key]
-
-    def _lde_xs(self, air):
-        """The LDE domain offset·h^i on the device (built once per size)."""
-        eng = type(self).engine
-        dev = self.device
-        lde_size = air.lde_domain_size
-        h = air.base.get_root_of_unity(lde_size.bit_length() - 1)
-        return eng._cached(("pows", h, lde_size, air.domain_offset, str(dev)),
-                           lambda: eng.power_series(h, lde_size, dev,
-                                                    air.domain_offset))
-
-    # ------------------------------------------------------------------
-    # DEEP composition (device_limb.py:1452-1604)
-    # ------------------------------------------------------------------
-
-    def _deep_evaluations(self, air, main_lde, comp_lde, z, g_trace: int,
-                          main_pair, comp_pair, deep_ccs):
-        """C_z(x)/(x−z) + C_gz(x)/(x−z·g) over the LDE domain, with z, the
-        OOD pairs and the coefficients ((w + cols, d, 2), trace first) on
-        the device."""
-        eng = type(self).engine
-        dev = self.device
-        d = air.ext_field.degree
-        lde_size = main_lde.shape[0]
-        xs = self._lde_xs(air)
-        # adjusted OOD constants: cc_i · T_i(z), cc_i · T_i(z·g)
-        adj_z = eng.ext_mul(torch.cat([main_pair[:, 0], comp_pair[:, 0]]),
-                            deep_ccs)
-        adj_gz = eng.ext_mul(torch.cat([main_pair[:, 1], comp_pair[:, 1]]),
-                             deep_ccs)
-
-        comp_z = torch.zeros((lde_size, d, 2), dtype=I64, device=dev)
-        comp_gz = torch.zeros((lde_size, d, 2), dtype=I64, device=dev)
-        terms = [eng.f128_mul(main_lde[:, c : c + 1], deep_ccs[c][None])
-                 for c in range(main_lde.shape[1])]
-        w = len(terms)
-        terms += [eng.ext_mul(comp_lde[:, j],
-                              deep_ccs[w + j].expand(lde_size, d, 2))
-                  for j in range(comp_lde.shape[1])]
-        for idx, term in enumerate(terms):
-            comp_z = eng.ext_add(comp_z, eng.ext_sub(term, adj_z[idx]))
-            comp_gz = eng.ext_add(comp_gz, eng.ext_sub(term, adj_gz[idx]))
-        zg = eng.f128_mul(z, g_trace)
-        return _deep_combine(eng, comp_z, comp_gz, z[None], zg[None], xs)
+    def _routes(self):
+        return _RESIDENT_ON, _FUSED_FRI_ON, _LEVEL_FUSE, _FRI_FUSE_LIMIT
 
 
 class F128Prover(LimbFieldProver):
     """Drop-in Prover for f128 AIRs (the reference's default field)."""
 
-    engine = f128_eng
-    eng_name = "f128"
-    ops_cls = TorchOpsF128
+    engine = f128
