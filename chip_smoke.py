@@ -30,7 +30,11 @@ Phases, each printed with its elapsed seconds as it ends:
    FRI, phased with the host coin; RpJive64_256 only the last), against the
    CPU's bytes; verify() accepts each. The same for the f128 prover
    (Blake3_256): fib at trace 2^10 (no extension) and 2^8 (quadratic), the
-   Rescue chain at trace 2^8.
+   Rescue chain at trace 2^8. Then, on both phased routes (the dispatch
+   never takes the resident one for them): rescue_raps -n 8 (aux segment,
+   without and with the extension) and the f64 aux AIR (trace 2^10, cubic)
+   with Rp64_256 and Blake3_256; and Lamport with one signature (trace
+   1024 x 22, sequence assertions) on the three routes.
 4. main path: fib over f64, trace 2^18, bench.py's options — with Rp64_256
    (bench.py's workload) and with Blake3_256 — on the resident and the
    phased route: per route one warm-up, its resident device run under
@@ -47,6 +51,13 @@ Phases, each printed with its elapsed seconds as it ends:
    2^20: the resident route, its device run under the sync check) and the
    CLI's fib (Blake3_256, ProofOptions(28, 8, 16, NONE, 8, 31), LDE 2^21:
    the phased route with fused FRI); and one Rescue prove with Sha3_256.
+   Then this slice's paths, timed the same way with the CLI's options:
+   bench.py's lamport workload (256 signatures, trace 2^18 x 22, LDE 2^21;
+   keys, signatures and trace built by native/f128.c before the proves) and
+   the CLI's rescue_raps -n 1024 (trace 2^14 x (8 + 3 aux)), both phased
+   with fused FRI.
+4b. the port's CLI: each of its 13 examples at a small -n, proved on the
+   card and verified.
 5. kernel times at the main path's shapes against their bounds: device time
    per launch from launches replayed in a CUDA graph, beside the time per
    call when the wrapper is called back to back from Python; the whole
@@ -122,6 +133,15 @@ F128_CORNERS = [0, 1, 2, P128 - 1, P128 - 2, (2**128 - 1) % P128,
                 (2**128 - 2) % P128, 2**64 - 1, 2**64, 2**64 + 1, 2**127,
                 2**100, 2**28, 2**96, 2**32, PHI128, PHI128 + 1,
                 P128 - PHI128, P128 - 2**64]
+
+
+# the port's CLI at small sizes (its -n: sequence length, chain length,
+# tree depth or signatures), each example once
+CLI_SIZES = (("fib", 1024), ("fib2", 1024), ("fib8", 1024),
+             ("fib_small", 1024), ("mulfib", 1024), ("mulfib8", 1024),
+             ("vdf", 1024), ("vdfx", 1024), ("rescue", 64),
+             ("rescue_raps", 8), ("merkle", 7), ("lamport", 2),
+             ("lamport_threshold", 3))
 
 
 def log(msg: str) -> None:
@@ -420,8 +440,11 @@ def main() -> int:
         compute_fib_term,
     )
     from winterfell_tpu_torch.math.fields import F64, F128
+    from winterfell_tpu_torch.examples import cli as port_cli
     from winterfell_tpu_torch.examples import fibonacci as fib128
+    from winterfell_tpu_torch.examples import lamport
     from winterfell_tpu_torch.examples import rescue as rescue128
+    from winterfell_tpu_torch.examples import rescue_raps as raps
     from winterfell_tpu_torch.ops import _build, device_coin, f128, field_kernels
     from winterfell_tpu_torch.ops import goldilocks as gl
     from winterfell_tpu_torch.ops import blake3, jive, rescue, sha3
@@ -850,6 +873,68 @@ def main() -> int:
             f"== CPU bytes on {', '.join(coin_routes)} ({len(cpu)} B), "
             "verified")
     device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
+    # aux segments (Randomized AIR), on each phased route with the resident
+    # switch left on (the dispatch never takes it for an aux segment):
+    # rescue_raps -n 8 without and with the extension and the f64 aux AIR
+    # with Rp64_256 (cubic) and Blake3_256; and the widest AIR, Lamport with
+    # one signature (trace 1024 x 22, sequence assertions), on all three
+    pks1, msgs1, sigs1 = lamport.sign_messages(1)
+    raps_seeds = [(i + 1, i + 2) for i in range(8)]
+    cube = ProofOptions(28, 8, 0, FieldExtension.CUBIC, 8, 31)
+    aux_routes = ("fused", "host")
+
+    def aux128(route: str) -> None:
+        device_limb._RESIDENT_ON = True
+        device_limb._FUSED_FRI_ON = route == "fused"
+
+    def aux64(route: str) -> None:
+        prover_device._RESIDENT_ON_F64 = True
+        prover_device._FUSED_FRI_ON = route == "fused"
+
+    def raps_trace(_):
+        return raps.build_raps_trace(raps_seeds,
+                                     raps_seeds[2:] + raps_seeds[:2])
+
+    Raps = F128Prover.accelerate(raps.RescueRapsProver)
+    slice_cases = [
+        ("rescue_raps -n 8", Raps, (), fib_opts["NONE"], Blake3_256,
+         raps.RescueRapsAir, raps_trace, aux128, aux_routes),
+        ("rescue_raps -n 8", Raps, (), fib_opts["QUADRATIC"], Blake3_256,
+         raps.RescueRapsAir, raps_trace, aux128, aux_routes),
+        ("lamport 1 signature",
+         F128Prover.accelerate(lamport.LamportAggregateProver), (pks1, msgs1),
+         fib_opts["NONE"], Blake3_256, lamport.LamportAggregateAir,
+         lambda d: lamport.build_lamport_trace(msgs1, sigs1), routed128,
+         coin_routes)]
+    slice_cases += [
+        (f"f64 aux fib 2^{log2_cmp}",
+         GoldilocksProver.accelerate(fib128.AuxFibProver), (), cube, hasher,
+         fib128.AuxFibAir,
+         lambda d: fib128.build_auxfib_trace(2 * n_cmp, device=d), aux64,
+         aux_routes)
+        for hasher in (Rp64_256, Blake3_256)]
+    for (what, prover_cls, extra, opts, hasher, air_cls, make_trace, switch,
+         routes) in slice_cases:
+        cpu_trace = make_trace("cpu")
+        host = prover_cls(opts, hasher, *extra, device="cpu")
+        cpu = host.prove(cpu_trace).to_bytes()
+        verify(air_cls, Proof.from_bytes(cpu), host.get_pub_inputs(cpu_trace),
+               hasher)
+        for route in routes:
+            switch(route)
+            prover = prover_cls(opts, hasher, *extra, device=dev)
+            # Lamport's sequence assertions in the resident run, sync-checked
+            _check_syncs(prover, not REHEARSAL and route == "resident")
+            proof = prover.prove(make_trace(dev))
+            check_route(route, f"{what} on {dev}")
+            if proof.to_bytes() != cpu:
+                raise AssertionError(f"{what} {hasher.name}: {route} proof "
+                                     f"bytes on {dev} differ from the CPU's")
+        log(f"{what} ({opts.field_extension.name}, {hasher.name}, trace "
+            f"{cpu_trace.length} x {cpu_trace.info().width}): card bytes == "
+            f"CPU bytes on {', '.join(routes)} ({len(cpu)} B), verified")
+    device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
+    prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
     phase("3 card vs cpu", t0)
 
     # 4 ----- the main path at full size, both routes ------------------------
@@ -1027,9 +1112,55 @@ def main() -> int:
     must_launch128(("rescue_f128_sha3", "resident"), "sha3_256")
     log(f"rescue_f128 sha3_256 resident: prove {wall:.4f} s (barriers on), "
         "verified")
+    # this slice's paths with the CLI's options: bench.py's lamport workload
+    # (Lamport aggregate, BENCH_SIGS = 256 signatures: trace 2^18 x 22, LDE
+    # 2^21, the phased route with fused FRI) and the CLI's rescue_raps at its
+    # default -n 1024 (trace 2^14 x (8 + 3 aux), phased with fused FRI); the
+    # keys, signatures and main traces are built before the timed proves
+    # (the rehearsal's one-signature LDE is below the resident limit)
+    device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = not REHEARSAL, True
+    n_sigs = 1 if REHEARSAL else 256
+    tb = time.perf_counter()
+    pks, msgs, sigs = lamport.sign_messages(n_sigs)
+    t_keys = time.perf_counter() - tb
+    tb = time.perf_counter()
+    ltrace = lamport.build_lamport_trace(msgs, sigs)
+    log(f"lamport: {n_sigs} keys and signatures (native/f128.c) built in "
+        f"{t_keys:.2f} s, the trace of {ltrace.length} x {ltrace.width} "
+        f"(native/f128.c) in {time.perf_counter() - tb:.2f} s")
+    lprover = F128Prover.accelerate(lamport.LamportAggregateProver)(
+        cli, Blake3_256, pks, msgs, device=dev)
+    timed_path(lprover, "fused", ("lamport", "fused"),
+               f"lamport fused: {n_sigs} signatures, trace {ltrace.length} x "
+               f"{ltrace.width}", lamport.LamportAggregateAir,
+               lprover.get_pub_inputs(ltrace), ltrace)
+    must_launch128(("lamport", "fused"), "blake3_256")
+    del ltrace, lprover
+    raps_n = 4 if REHEARSAL else 1024
+    seeds = [(i + 1, i + 2) for i in range(raps_n)]
+    tb = time.perf_counter()
+    rr_trace = raps.build_raps_trace(seeds, seeds[2:] + seeds[:2])
+    log(f"rescue_raps: the main trace of {rr_trace.length} x 8 (Python "
+        f"Rescue rounds) built in {time.perf_counter() - tb:.2f} s; its aux "
+        "columns are built inside each prove (phase build_aux_trace)")
+    rr_prover = F128Prover.accelerate(raps.RescueRapsProver)(cli, Blake3_256,
+                                                             device=dev)
+    timed_path(rr_prover, "fused", ("rescue_raps", "fused"),
+               f"rescue_raps fused: -n {raps_n}, trace {rr_trace.length} x "
+               "(8 + 3)", raps.RescueRapsAir,
+               rr_prover.get_pub_inputs(rr_trace), rr_trace)
+    must_launch128(("rescue_raps", "fused"), "blake3_256")
     device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
     tracing.set_phase_sync(True)
     phase("4 main path", t0)
+
+    # 4b ----- the port's CLI: every example proves on the card, verifies ---
+    t0 = time.perf_counter()
+    for name, size in CLI_SIZES:
+        log(f"cli: {name} -n {size}")
+        port_cli.main([name, "-n", str(size)]
+                      + (["--cpu"] if REHEARSAL else []))
+    phase("4b cli", t0)
 
     # 5 ----- kernel times at the main path's shapes -------------------------
     t0 = time.perf_counter()
@@ -1171,7 +1302,9 @@ def main() -> int:
          "Pallas kernel)", "winterfell_tpu_torch/csrc/blake3.cu",
          [b3_hash_entry(big, 2), b3_hash_entry(big, 3 * comp_cols),
           b3_hash_entry(big // 8, 24), b3_hash_entry(big, 2, 6),
-          b3_hash_entry(1, 18)]),
+          b3_hash_entry(1, 18),
+          # a row of the Lamport trace LDE: 22 f128 elements, 352 bytes
+          b3_hash_entry(big, 44)]),
         ("blake3_merge_rows", "winterfell_tpu/ops/blake3_device.py:153 "
          "(blake3_merge_rows; jnp program, no Pallas kernel)",
          "winterfell_tpu_torch/csrc/blake3.cu",
@@ -1298,6 +1431,12 @@ def main() -> int:
           draw128_entry("sha3_256", 1, 1)],
          (("rescue_f128_sha3", "resident"), None)),
     ]
+    def by_path(name):
+        """The kernel's launches in one prove of every timed path that
+        launched it."""
+        return {"/".join(key): counts[name] for key, counts in runs.items()
+                if counts.get(name)}
+
     kernels = []
     for name, replaces, source, shapes in records:
         main = shapes[0]
@@ -1313,7 +1452,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": runs[hasher_name, route][name],
             "launches_phased": None if phased is None else phased[name],
-            "path": [hasher_name, route],
+            "path": [hasher_name, route], "launches_by_path": by_path(name),
             "max_abs_err": errs[name], "max_diff": errs[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1325,7 +1464,7 @@ def main() -> int:
             "replaces": replaces, "launches": runs[key][name],
             "launches_phased": (None if phased_key is None
                                 else runs[phased_key][name]),
-            "path": list(key),
+            "path": list(key), "launches_by_path": by_path(name),
             "max_abs_err": errs[name], "max_diff": errs[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],

@@ -13,13 +13,17 @@ import torch
 from winterfell_tpu_torch import FieldExtension, ProofOptions, Rp64_256, F64
 from winterfell_tpu_torch.crypto.hashers import Blake3_256, RpJive64_256
 from winterfell_tpu_torch.examples import fibonacci as tfib
+from winterfell_tpu_torch.examples import rescue_raps
 from winterfell_tpu_torch.ops import blake3, device_coin, field_kernels, jive
 from winterfell_tpu_torch.ops import rescue, sha3
 from winterfell_tpu_torch.ops import goldilocks as gl
 from winterfell_tpu_torch.prover import device as prover_device
 from winterfell_tpu_torch.ops.device_hashers import DEVICE_HASHERS
 from winterfell_tpu_torch.ops.words import rows_from_u64
+from winterfell_tpu_torch.prover import device_limb
 from winterfell_tpu_torch.prover.device import GoldilocksProver
+from winterfell_tpu_torch.prover.device_limb import F128Prover
+from winterfell_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.gpu
 
@@ -205,7 +209,8 @@ def test_resident_and_phased_card_proofs_equal_cpu_proof(cuda, monkeypatch):
     """Trace 2^10 (two FRI layers with bench_fib's options): every route of
     Rp64_256 and Blake3_256 (resident, phased + fused FRI, phased + host
     coin) and RpJive64_256's one (host coin) on the card give the CPU's
-    bytes; the resident device runs make no host synchronisation."""
+    bytes; the resident device runs make no host synchronisation. And the
+    f128 prover's aux segment (rescue_raps) on both phased routes."""
     opts = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
     prover_cls = GoldilocksProver.accelerate(tfib.FibSmallProver)
     checked_runs = []
@@ -236,6 +241,25 @@ def test_resident_and_phased_card_proofs_equal_cpu_proof(cuda, monkeypatch):
             assert card.to_bytes() == cpu.to_bytes(), (hasher.name, route)
     assert checked_runs == [("rp64_256", "resident"),
                             ("blake3_256", "resident")]
+    # an aux segment (rescue_raps -n 8, quadratic extension) through the
+    # f128 prover on both phased routes; the resident switch stays on, and
+    # the dispatch must not take it
+    seeds = [(i + 1, i + 2) for i in range(8)]
+    raps_opts = ProofOptions(28, 8, 0, FieldExtension.QUADRATIC, 8, 31)
+    raps_cls = F128Prover.accelerate(rescue_raps.RescueRapsProver)
+
+    def raps_trace():
+        return rescue_raps.build_raps_trace(seeds, seeds[2:] + seeds[:2])
+
+    cpu = raps_cls(raps_opts, Blake3_256, device="cpu").prove(raps_trace())
+    for fused in (True, False):
+        monkeypatch.setattr(device_limb, "_RESIDENT_ON", True)
+        monkeypatch.setattr(device_limb, "_FUSED_FRI_ON", fused)
+        card = raps_cls(raps_opts, Blake3_256).prove(raps_trace())
+        names = [s["name"] for s in tracing.last_spans()]
+        assert "resident_pipeline" not in names
+        assert ("fri_layers_fused" in names) == fused
+        assert card.to_bytes() == cpu.to_bytes(), ("rescue_raps", fused)
 
 
 def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):

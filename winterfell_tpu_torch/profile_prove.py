@@ -8,7 +8,10 @@ Rp64_256 or another f64 hasher by its name in ``crypto.hashers.HASHERS``),
 or one of the f128 paths with the F128Prover and Blake3_256 unless
 ``--hasher`` names BLAKE3 or SHA3 (``--path rescue_f128``: bench.py's Rescue
 chain, ProofOptions(42, 4, 16, NONE, 8, 31); ``--path fib_f128``: the CLI's
-fib, ProofOptions(28, 8, 16, NONE, 8, 31)), once to warm up,
+fib, ``--path lamport``: bench.py's Lamport aggregate (2^(log2 - 10)
+signatures), ``--path rescue_raps``: the CLI's rescue_raps (-n 2^(log2 - 4),
+an aux segment), each with the CLI's ProofOptions(28, 8, 16, NONE, 8, 31);
+keys, signatures and traces are built before any prove), once to warm up,
 then once under ``torch.profiler`` with phase barriers off, and prints one
 JSON object: the route the prove took (resident by default;
 ``WINTER_RESIDENT=0`` for the phased one), the wall time, the device time
@@ -83,7 +86,8 @@ def main() -> int:
     ap.add_argument("--walls", type=int, default=0,
                     help="free-running proves timed before the profiled one")
     ap.add_argument("--path", default="fib_small",
-                    choices=("fib_small", "rescue_f128", "fib_f128"))
+                    choices=("fib_small", "rescue_f128", "fib_f128",
+                             "lamport", "rescue_raps"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -92,7 +96,7 @@ def main() -> int:
 
     from .air import FieldExtension, ProofOptions
     from .crypto import hashers
-    from .examples import rescue
+    from .examples import lamport, rescue, rescue_raps
     from .examples.fibonacci import FibProver, FibSmallProver, build_fib_trace
     from .math.fields import F64, F128
     from .prover.device import GoldilocksProver
@@ -114,8 +118,20 @@ def main() -> int:
             trace = rescue.build_rescue_trace((42, 43), 1 << (args.log2 - 4))
         else:
             options = ProofOptions(28, 8, 16, FieldExtension.NONE, 8, 31)
-            prover = F128Prover.accelerate(FibProver)(options, hasher)
-            trace = build_fib_trace(F128, 2 << args.log2, device="cuda")
+            if args.path == "lamport":
+                pks, msgs, sigs = lamport.sign_messages(1 << (args.log2 - 10))
+                prover = F128Prover.accelerate(lamport.LamportAggregateProver)(
+                    options, hasher, pks, msgs)
+                trace = lamport.build_lamport_trace(msgs, sigs)
+            elif args.path == "rescue_raps":
+                seeds = [(i + 1, i + 2) for i in range(1 << (args.log2 - 4))]
+                prover = F128Prover.accelerate(rescue_raps.RescueRapsProver)(
+                    options, hasher)
+                trace = rescue_raps.build_raps_trace(seeds,
+                                                     seeds[2:] + seeds[:2])
+            else:
+                prover = F128Prover.accelerate(FibProver)(options, hasher)
+                trace = build_fib_trace(F128, 2 << args.log2, device="cuda")
     prover.prove(trace)
     tracing.set_phase_sync(False)
     torch.cuda.synchronize()

@@ -267,16 +267,16 @@ def _eval_cols_pair(eng, polys, pows2):
     return eng.sum0(prod)
 
 
-def _ood_pairs(eng, main_polys, comp_columns, z, g_trace: int):
-    """OOD evaluations of every column at z and z·g for a (d,) device z:
-    (main (w, 2, d), composition (cols, 2, d)). The power tables are built
-    on the device from z (winterfell_tpu/prover/device.py:1551-1563)."""
-    n = main_polys.shape[0]
+def _ood_pairs(eng, matrices, z, g_trace: int):
+    """OOD evaluations of every column of each coefficient matrix (main,
+    aux if any, composition) at z and z·g for a (d,) device z: one (k, 2, d)
+    pair per matrix. The power tables are built on the device from z
+    (winterfell_tpu/prover/device.py:1551-1563)."""
+    n = matrices[0].shape[0]
     zg = eng.mul(z, eng.const(g_trace))
     pows2 = torch.stack([eng.ext_power_table(z, n),
                          eng.ext_power_table(zg, n)], dim=1)
-    return (_eval_cols_pair(eng, main_polys, pows2),
-            _eval_cols_pair(eng, comp_columns, pows2))
+    return [_eval_cols_pair(eng, m, pows2) for m in matrices]
 
 
 def _transition_divisor_inv(eng, xs, n: int, exemptions):
@@ -467,8 +467,6 @@ class DeviceProver(Prover):
         assert air.base.p == eng.P, (
             f"{type(self).__name__} requires the {eng.NAME} base field")
         h = self._device_hasher()
-        assert not air.trace_info.is_multi_segment, (
-            f"{type(self).__name__} proves single-segment traces")
         channel = ProverChannel(air, air.pub_inputs_to_elements(), self.hasher)
         phases = tracing.Phases("device_prove")
         fri_opts = FriOptions(air.options.blowup_factor,
@@ -484,7 +482,8 @@ class DeviceProver(Prover):
         ood_bytes = (2 * (air.trace_info.width
                           + air.context.num_constraint_composition_columns())
                      * air.ext_field.degree * air.base.element_bytes)
-        if (resident_on and coin_kind is not None and n_layers > 0
+        if (resident_on and coin_kind is not None
+                and not air.trace_info.is_multi_segment and n_layers > 0
                 and rem_n >= 2 and lde_size <= resident_limit
                 and (h.kind == "field" or ood_bytes <= _OOD_BYTES_LIMIT)):
             return self._prove_resident(air, trace, channel, phases, fri_opts,
@@ -517,15 +516,39 @@ class DeviceProver(Prover):
         main_tree = PrehashedMerkleTree(leaves, levels, self.hasher)
         channel.commit_trace(main_tree.root)
         phases.mark("commit_to_main_trace_segment", lde_domain_size=lde_size)
+        traces = [(main_tree, main_lde)]
+
+        # the aux segment of a Randomized AIR: its random elements drawn
+        # after the main commitment, its (n, w_aux, d) extension columns
+        # built on the host and committed like the main ones
+        # (winterfell_tpu/prover/device.py:1158-1175)
+        aux, aux_rands, polys = None, None, [main_polys]
+        if air.trace_info.is_multi_segment:
+            aux_rands = air.get_aux_rand_elements(channel.public_coin)
+            aux_obj = self.build_aux_trace(trace, aux_rands)
+            phases.mark("build_aux_trace")
+            aux_dev = eng.to_device(aux_obj, dev)
+            del aux_obj
+            w_aux = aux_dev.shape[1]
+            aux_polys, aux_lde, leaves, levels = _commit_pipeline(
+                eng, aux_dev, n, offset, blowup,
+                part.partition_size(w_aux, d) * d, h)
+            del aux_dev
+            aux_tree = PrehashedMerkleTree(leaves, levels, self.hasher)
+            channel.commit_trace(aux_tree.root)
+            traces.append((aux_tree, aux_lde))
+            polys.append(aux_polys)
+            aux = (aux_lde, _ext_tensor(eng, aux_rands, dev))
+            phases.mark("commit_to_aux_trace_segment")
 
         # 2 ----- constraint evaluation -------------------------------------
         ccs = channel.get_constraint_composition_coeffs()
         boundary = air.get_boundary_constraints(
-            None, list(range(air.context.num_assertions)))
+            aux_rands, list(range(air.context.num_assertions)))
         ce_column = tracing.sync(self._evaluate_constraints(
             air, main_lde,
             _ext_tensor(eng, ccs.transition + ccs.boundary, dev),
-            boundary, self._seq_coeffs(air, boundary)))
+            boundary, self._seq_coeffs(air, boundary), aux))
         phases.mark("evaluate_constraints", ce_domain_size=ce)
 
         # 3 ----- composition commitment ------------------------------------
@@ -541,17 +564,19 @@ class DeviceProver(Prover):
         # 4 ----- OOD evaluations + DEEP ------------------------------------
         z = _ext_tensor(eng, [channel.get_ood_point()], dev)[0]
         g_trace = air.base.get_root_of_unity(n.bit_length() - 1)
-        main_pair, comp_pair = _ood_pairs(eng, main_polys, comp_columns, z,
-                                          g_trace)
-        # both matrices' evaluations cross to the host in one copy
-        main_np, comp_np = _pull_small([main_pair, comp_pair])
-        trace_cur, trace_nxt = _ood_lists(eng, main_np)
-        quot_cur, quot_nxt = _ood_lists(eng, comp_np)
+        pairs = torch.cat(_ood_pairs(eng, polys + [comp_columns], z, g_trace))
+        # every matrix's evaluations cross to the host in one copy; the
+        # trace columns (main, then aux) come first
+        pairs_np = _pull_small([pairs])[0]
+        w_all = air.trace_info.width
+        trace_cur, trace_nxt = _ood_lists(eng, pairs_np[:w_all])
+        quot_cur, quot_nxt = _ood_lists(eng, pairs_np[w_all:])
         channel.send_ood_evaluations(trace_cur, trace_nxt, quot_cur, quot_nxt)
         phases.mark("ood_evaluations")
         deep_ccs = channel.get_deep_composition_coeffs()
         deep_evaluations = tracing.sync(self._deep_evaluations(
-            air, main_lde, comp_lde, z, g_trace, main_pair, comp_pair,
+            air, main_lde, [lde for _, lde in traces[1:]] + [comp_lde], z,
+            g_trace, pairs,
             _ext_tensor(eng, deep_ccs.trace + deep_ccs.constraints, dev)))
         phases.mark("build_deep_composition_poly")
 
@@ -591,8 +616,7 @@ class DeviceProver(Prover):
             rem_coeffs = eng.ntt_interpolate_with_offset(evaluations, rem_n,
                                                          offset)
         return self._finish_proof(air, channel, phases, rem_n, rem_coeffs,
-                                  fri_layers, main_tree, main_lde, comp_tree,
-                                  comp_lde)
+                                  fri_layers, traces, comp_tree, comp_lde)
 
     # ------------------------------------------------------------------
     # whole-proof resident route (winterfell_tpu/prover/device.py:1382-1626)
@@ -645,8 +669,8 @@ class DeviceProver(Prover):
         channel.public_coin.counter = 0
         phases.mark("resident_pipeline", lde_domain_size=air.lde_domain_size)
         return self._finish_proof(air, channel, phases, rem_n, rem_coeffs,
-                                  fri_layers, main_tree, main_lde, comp_tree,
-                                  comp_lde)
+                                  fri_layers, [(main_tree, main_lde)],
+                                  comp_tree, comp_lde)
 
     def _resident_consts(self, air, boundary, fri_opts, n_layers: int):
         """Builds, before the device run, every table the run reads that
@@ -721,7 +745,7 @@ class DeviceProver(Prover):
         z_row, _ = draw(seed)
         z = z_row[0]
         g_trace = air.base.get_root_of_unity(n.bit_length() - 1)
-        main_pair, comp_pair = _ood_pairs(eng, main_polys, comp_columns, z,
+        main_pair, comp_pair = _ood_pairs(eng, [main_polys, comp_columns], z,
                                           g_trace)
         merged = torch.cat([main_pair[:, 0], comp_pair[:, 0],
                             main_pair[:, 1], comp_pair[:, 1]])
@@ -733,19 +757,20 @@ class DeviceProver(Prover):
         seed = merge(seed, ood_digest)
         # 5 -- DEEP composition, 6 -- FRI layers
         deep_all, _ = draw_k(seed, w + num_cols, method_d)
-        deep_evals = self._deep_evaluations(air, main_lde, comp_lde, z,
-                                            g_trace, main_pair, comp_pair,
-                                            deep_all)
+        deep_evals = self._deep_evaluations(
+            air, main_lde, [comp_lde], z, g_trace,
+            torch.cat([main_pair, comp_pair]), deep_all)
         fri_outs, rem_coeffs, seed = _fri_phase_body(
             eng, deep_evals, seed, merge, draw, h, n_fold, n_layers, offset)
         return (main_lde, m_leaves, m_levels, comp_lde, c_leaves, c_levels,
                 main_pair, comp_pair, fri_outs, rem_coeffs, seed)
 
     def _finish_proof(self, air, channel, phases, rem_n: int, rem_coeffs,
-                      fri_layers, main_tree, main_lde, comp_tree,
-                      comp_lde) -> Proof:
+                      fri_layers, traces, comp_tree, comp_lde) -> Proof:
         """Remainder commit, grinding, query positions, and the batched
-        query gathers + proof assembly."""
+        query gathers + proof assembly. ``traces`` holds (tree, LDE) of each
+        trace segment: the main one, then the aux one if any
+        (winterfell_tpu/prover/device.py:1346-1348)."""
         eng = self.engine
         ext = air.ext_field
         lde_size = air.lde_domain_size
@@ -772,10 +797,11 @@ class DeviceProver(Prover):
             layer_starts.append((tree, tree.prove_batch_start(positions, gb),
                                  gb.add(transposed, positions)))
             domain_size //= n_fold
-        q_starts = [(main_tree, Field(air.base, 1), main_tree.prove_batch_start(
-                        query_positions, gb), gb.add(main_lde, query_positions)),
-                    (comp_tree, ext, comp_tree.prove_batch_start(
-                        query_positions, gb), gb.add(comp_lde, query_positions))]
+        fields = [Field(air.base, 1)] + [ext] * len(traces)
+        q_starts = [(tree, field, tree.prove_batch_start(query_positions, gb),
+                     gb.add(lde, query_positions))
+                    for (tree, lde), field in zip(
+                        traces + [(comp_tree, comp_lde)], fields)]
 
         proof_layers = []
         for tree, st, rows_slot in layer_starts:
@@ -804,87 +830,141 @@ class DeviceProver(Prover):
 
     # ------------------------------------------------------------------
 
-    def _evaluate_constraints(self, air, main_lde, ccs_all, boundary, seq):
+    def _evaluate_constraints(self, air, main_lde, ccs_all, boundary, seq,
+                              aux=None):
         """Tensor mirror of prover/evaluator.py over the whole CE domain.
         ``ccs_all`` (n_t + n_b, d) holds the composition coefficients on the
-        device (transition first); ``boundary`` was built with each
-        constraint's ``cc`` the index of its coefficient among the boundary
-        ones; ``seq`` holds each group's sequence coefficients
-        (``_seq_coeffs``)."""
+        device (transition first, main before aux in each kind);
+        ``boundary`` was built with each constraint's ``cc`` the index of
+        its coefficient among the boundary ones; ``seq`` holds each group's
+        sequence coefficients (``_seq_coeffs``); ``aux`` is (aux LDE, the
+        aux random elements as a (k, d) device tensor) for a Randomized
+        AIR (winterfell_tpu/prover/device.py:1676-1920)."""
         eng = self.engine
         dev = self.device
         d = air.ext_field.degree
         ce_blowup = air.ce_blowup_factor
         stride = air.options.blowup_factor // ce_blowup
         n_t = air.context.num_transition_constraints
+        n_main = len(air.context.main_degrees)
 
         main_ce = main_lde[::stride]
         main_ce_next = torch.roll(main_ce, -ce_blowup, dims=0)
         t_ccs, b_ccs = ccs_all[:n_t], ccs_all[n_t:]
         t_div_inv, group_consts, periodic, ce = self._ce_consts(air, boundary)
 
-        frame = EvaluationFrame(
-            [main_ce[:, c : c + 1] for c in range(main_ce.shape[1])],
-            [main_ce_next[:, c : c + 1] for c in range(main_ce.shape[1])])
+        cur = [main_ce[:, c : c + 1] for c in range(main_ce.shape[1])]
+        nxt = [main_ce_next[:, c : c + 1] for c in range(main_ce.shape[1])]
         main_evals = air.evaluate_transition(
-            frame, periodic, ops_for(Field(air.base, 1), dev))
+            EvaluationFrame(cur, nxt), periodic,
+            ops_for(Field(air.base, 1), dev))
         combined = torch.zeros((ce, d) + eng.ELEM, dtype=I64, device=dev)
         for i, ev in enumerate(main_evals):
             combined = eng.ext_add(combined, eng.mul(ev, t_ccs[i][None]))
+
+        aux_ce = None
+        if aux is not None:
+            aux_lde, rands = aux
+            aux_ce = aux_lde[::stride]
+            aux_ce_next = torch.roll(aux_ce, -ce_blowup, dims=0)
+
+            def lift(a):  # (ce, 1) base columns as (ce, d) extension ones
+                pad = torch.zeros((a.shape[0], d - 1) + a.shape[2:],
+                                  dtype=I64, device=dev)
+                return torch.cat([a, pad], dim=1)
+
+            aux_evals = air.evaluate_aux_transition(
+                EvaluationFrame([lift(a) for a in cur], [lift(a) for a in nxt]),
+                EvaluationFrame([aux_ce[:, c] for c in range(aux_ce.shape[1])],
+                                [aux_ce_next[:, c]
+                                 for c in range(aux_ce.shape[1])]),
+                [lift(pv) for pv in periodic],
+                [rands[i][None] for i in range(rands.shape[0])],
+                ops_for(air.ext_field, dev))
+            for i, ev in enumerate(aux_evals):
+                combined = eng.ext_add(combined, eng.ext_mul(
+                    ev, t_ccs[n_main + i][None].expand_as(ev)))
         result = eng.ext_mul_base(combined, t_div_inv)
 
-        for g, (div_inv, scales), q in zip(boundary.main_groups, group_consts,
-                                           seq):
+        groups = ([(g, main_ce, False) for g in boundary.main_groups]
+                  + [(g, aux_ce, True) for g in boundary.aux_groups])
+        for (g, trace, is_ext), (div_inv, scales), q in zip(
+                groups, group_consts, seq):
             numer = torch.zeros((ce, d) + eng.ELEM, dtype=I64, device=dev)
+
+            def add_term(col, value, cc):
+                """numer += (T(x) − b(x)) · cc for a column of ``trace``."""
+                nonlocal numer
+                if is_ext:
+                    diff = eng.ext_sub(trace[:, col], value.expand(
+                        trace[:, col].shape))
+                    term = eng.ext_mul(diff, b_ccs[cc][None].expand_as(diff))
+                else:
+                    term = eng.mul(eng.sub(trace[:, col], value)[:, None],
+                                   b_ccs[cc][None])
+                numer = eng.ext_add(numer, term)
+
             singles = [c for c in g.constraints if len(c.poly) == 1]
             seqs = [c for c in g.constraints if len(c.poly) > 1]
             for c in singles:
-                diff = eng.sub(main_ce[:, c.column], eng.const(c.poly[0][0]))
-                numer = eng.ext_add(numer, eng.mul(diff[:, None],
-                                                   b_ccs[c.cc][None]))
+                add_term(c.column, _ext_tensor(eng, c.poly, dev) if is_ext
+                         else eng.const(c.poly[0][0]), c.cc)
             if seqs:
-                # batched sequence value polys: the zero-padded (ce, k)
-                # coefficient block, each column scaled by its
-                # (offset·poly_offset)^i series, one NTT
-                b_vals = eng.ntt_evaluate(eng.mul(q, scales), ce)
+                # batched sequence value polys: the (L, k) coefficient block
+                # zero-padded to the CE size on the device, each column
+                # scaled by its (offset·poly_offset)^i series, one NTT
+                q = torch.cat([q, torch.zeros((ce - q.shape[0],) + q.shape[1:],
+                                              dtype=I64, device=dev)])
+                b_vals = eng.ntt_evaluate(
+                    eng.mul(q, scales.unsqueeze(2) if is_ext else scales), ce)
                 for j, c in enumerate(seqs):
-                    diff = eng.sub(main_ce[:, c.column], b_vals[:, j])
-                    numer = eng.ext_add(numer, eng.mul(diff[:, None],
-                                                       b_ccs[c.cc][None]))
+                    add_term(c.column, b_vals[:, j], c.cc)
             result = eng.ext_add(result, eng.ext_mul_base(numer, div_inv))
         return result
 
     def _seq_coeffs(self, air, boundary):
-        """Per main boundary group, its sequence assertions' value-polynomial
-        coefficients as a zero-padded (ce, k) device tensor (None without
-        sequences): per-proof values, copied to the device before the run."""
-        ce = air.context.ce_domain_size
+        """Per boundary group (main, then aux), its sequence assertions'
+        value-polynomial coefficients as an (L, k) device tensor, L the
+        longest polynomial, shorter ones zero-padded ((L, k, d) for an aux
+        group; None without sequences): per-proof values, copied to the
+        device before the run. The CE pads them to its domain on the
+        device: no host array of the CE domain's size is built."""
+        d = air.ext_field.degree
         out = []
-        for g in boundary.main_groups:
+        for g, is_ext in ([(g, False) for g in boundary.main_groups]
+                          + [(g, True) for g in boundary.aux_groups]):
             seqs = [c for c in g.constraints if len(c.poly) > 1]
             if not seqs:
                 out.append(None)
                 continue
-            q = np.zeros((ce, len(seqs)), dtype=object)
+            q = np.zeros((max(len(c.poly) for c in seqs), len(seqs))
+                         + ((d,) if is_ext else ()), dtype=object)
             for j, c in enumerate(seqs):
-                q[: len(c.poly), j] = [int(v[0]) for v in c.poly]
+                for i, v in enumerate(c.poly):
+                    if is_ext:
+                        q[i, j, : len(v)] = list(v)
+                    else:
+                        q[i, j] = int(v[0])
             out.append(self.engine.to_device(q, self.device))
         return out
 
     def _ce_consts(self, air, boundary):
-        """Per-structure CE-domain constants (divisor inverses, sequence
-        scales, periodic columns), built once per AIR shape and device."""
+        """Per-structure CE-domain constants (divisor inverses and sequence
+        scales of every boundary group, main then aux; periodic columns),
+        built once per AIR shape and device."""
         eng = self.engine
         ce = air.context.ce_domain_size
         n = air.trace_length
         offset = air.domain_offset
         p = eng.P
         periodic_polys = air.get_periodic_column_polys()
+        groups = boundary.main_groups + boundary.aux_groups
         key = (type(air), n, ce, air.context.num_transition_exemptions,
+               len(boundary.main_groups),
                tuple((tuple(g.divisor.numerator),
                       tuple((c.column, len(c.poly), c.poly_offset)
                             for c in g.constraints))
-                     for g in boundary.main_groups),
+                     for g in groups),
                tuple(tuple(poly) for poly in periodic_polys), str(self.device))
         cache = self.__dict__.setdefault("_ce_cache", {})
         if key in cache:
@@ -905,7 +985,7 @@ class DeviceProver(Prover):
             air.base, n, air.context.num_transition_exemptions)
         t_div_inv = _transition_divisor_inv(eng, xs, n, divisor.exemptions)
         group_consts = []
-        for g in boundary.main_groups:
+        for g in groups:
             div_inv = _boundary_divisor_inv(eng, xs, *g.divisor.numerator[0])
             seqs = [c for c in g.constraints if len(c.poly) > 1]
             scales = (torch.stack([eng.power_series(offset * c.poly_offset % p,
@@ -925,10 +1005,12 @@ class DeviceProver(Prover):
                            lambda: eng.power_series(h, lde_size, dev,
                                                     air.domain_offset))
 
-    def _deep_evaluations(self, air, main_lde, comp_lde, z, g_trace: int,
-                          main_pair, comp_pair, deep_ccs):
+    def _deep_evaluations(self, air, main_lde, ext_ldes, z, g_trace: int,
+                          pairs, deep_ccs):
         """DEEP over the LDE domain: C_z(x)/(x−z) + C_gz(x)/(x−z·g), with z,
-        the OOD pairs and the coefficients ((w + cols, d), trace first) on
+        the OOD pairs of every column and the coefficients ((k, d): the main
+        columns, then those of ``ext_ldes``, the extension matrices in
+        proof order: the aux segment's if any, then the composition's) on
         the device."""
         eng = self.engine
         dev = self.device
@@ -936,19 +1018,17 @@ class DeviceProver(Prover):
         lde_size = main_lde.shape[0]
         xs = self._lde_xs(air)
         # adjusted OOD constants: cc_i · T_i(z), cc_i · T_i(z·g)
-        adj_z = eng.ext_mul(torch.cat([main_pair[:, 0], comp_pair[:, 0]]),
-                            deep_ccs)
-        adj_gz = eng.ext_mul(torch.cat([main_pair[:, 1], comp_pair[:, 1]]),
-                             deep_ccs)
+        adj_z = eng.ext_mul(pairs[:, 0], deep_ccs)
+        adj_gz = eng.ext_mul(pairs[:, 1], deep_ccs)
 
         comp_z = torch.zeros((lde_size, d) + eng.ELEM, dtype=I64, device=dev)
         comp_gz = torch.zeros((lde_size, d) + eng.ELEM, dtype=I64, device=dev)
         terms = [eng.mul(main_lde[:, c : c + 1], deep_ccs[c][None])
                  for c in range(main_lde.shape[1])]
-        w = len(terms)
-        terms += [eng.ext_mul(comp_lde[:, j],
-                              deep_ccs[w + j].expand_as(comp_lde[:, j]))
-                  for j in range(comp_lde.shape[1])]
+        for lde in ext_ldes:
+            for j in range(lde.shape[1]):
+                terms.append(eng.ext_mul(
+                    lde[:, j], deep_ccs[len(terms)].expand_as(lde[:, j])))
         for idx, term in enumerate(terms):
             comp_z = eng.ext_add(comp_z, eng.ext_sub(term, adj_z[idx]))
             comp_gz = eng.ext_add(comp_gz, eng.ext_sub(term, adj_gz[idx]))
