@@ -24,8 +24,17 @@ Phases, each printed with its elapsed seconds as it ends:
    whose high half is near 2^128 mod p), at the operand layouts the f128
    prover passes and split above a lowered INDEX_LIMIT; B13n (whole NTTs of
    its stages) at sizes 2 ... 2^21; the f128 draw of each byte coin with
+   rejected candidates planted. The f62 kernels: B14 add, subtract and
+   multiply at (2^21,) over random values and every pair of an f62 corner
+   set, at the f62 prover's operand layouts and split above a lowered
+   INDEX_LIMIT; B14n (whole NTTs) at sizes 2 ... 2^21; B15 (Rp62_248) row
+   hashes of 1 ... 24 elements and at (2^21, 2), (2^21, 3), (2^18, 24),
+   merges and trees of 1 ... 2^21 leaves, the coin's candidates below and
+   above p62; the f62 draws of the Rp62_248, BLAKE3 and SHA3 coins with
    rejected candidates planted.
-3. card vs CPU: a fib proof at trace 2^10 with each f64 hasher on the card,
+3. card vs CPU (the CPU's proofs come from a process of their own, started
+   after phase 1, which proves while the card runs phase 2): a fib proof
+   at trace 2^10 with each f64 hasher on the card,
    on each route the JAX dispatch gives it (resident, phased with fused
    FRI, phased with the host coin; RpJive64_256 only the last), against the
    CPU's bytes; verify() accepts each. The same for the f128 prover
@@ -34,7 +43,10 @@ Phases, each printed with its elapsed seconds as it ends:
    never takes the resident one for them): rescue_raps -n 8 (aux segment,
    without and with the extension) and the f64 aux AIR (trace 2^10, cubic)
    with Rp64_256 and Blake3_256; and Lamport with one signature (trace
-   1024 x 22, sequence assertions) on the three routes.
+   1024 x 22, sequence assertions) on the three routes. The f62 prover:
+   fib over f62 at trace 2^10 (cubic) with Blake3_256 and Rp62_248 on the
+   three routes, Sha3_256 on the resident one, Rp62_248 with two
+   partitions (quadratic) on the resident one.
 4. main path: fib over f64, trace 2^18, bench.py's options — with Rp64_256
    (bench.py's workload) and with Blake3_256 — on the resident and the
    phased route: per route one warm-up, its resident device run under
@@ -55,7 +67,11 @@ Phases, each printed with its elapsed seconds as it ends:
    bench.py's lamport workload (256 signatures, trace 2^18 x 22, LDE 2^21;
    keys, signatures and trace built by native/f128.c before the proves) and
    the CLI's rescue_raps -n 1024 (trace 2^14 x (8 + 3 aux)), both phased
-   with fused FRI.
+   with fused FRI. Then the f62 slice's paths, timed the same way: fib over
+   f62 with the CLI's options and the cubic extension, Blake3_256
+   (grinding 16) and Rp62_248 (no grinding), at trace 2^17 (LDE 2^20,
+   resident, sync-checked) and 2^18 (LDE 2^21, phased with fused FRI); and
+   one resident prove with Sha3_256.
 4b. the port's CLI: each of its 13 examples at a small -n, proved on the
    card and verified.
 5. kernel times at the main path's shapes against their bounds: device time
@@ -70,12 +86,15 @@ CUDA card the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -135,6 +154,27 @@ F128_CORNERS = [0, 1, 2, P128 - 1, P128 - 2, (2**128 - 1) % P128,
                 P128 - PHI128, P128 - 2**64]
 
 
+# B14 / B14n: one f62 product is a 64×64→128-bit product (4 partial
+# products of 2 IMADs); its four folds multiply by 2^62 mod p = 111·2^39 −
+# 1 only, which is (h << 46) − (h << 43) − (h << 39) − h: no IMAD. An add
+# or subtract multiplies nothing.
+IMAD_PER_F62_MUL = 8
+# B15, Rp62_248, counted as Rp64_256 above: per lane and round the S-box x^3
+# (a squaring and a multiply) and the inverse S-box's chain (62 squarings,
+# 11 multiplies), 63 squarings at 6 IMADs and 12 multiplies at 8; each of
+# the 14 MDS is 144 products of a lane by a 62-bit constant (8 IMADs), and
+# the reductions of its 128-bit sums fold by 2^64 mod p = 4·E and 2^62 mod p
+# = E, shifts and subtracts only: 7·12·(63·6 + 12·8) + 14·144·8 = 55,944.
+IMAD_PER_RP62 = 7 * 12 * (63 * 6 + 12 * 8) + 14 * 144 * 8
+P62 = 2**62 - 111 * 2**39 + 1
+E62 = 111 * 2**39 - 1  # 2^62 mod p
+# canonical f62 corner values: 0, 1, 2, p - 1, p - 2; 2^62 mod p and its
+# neighbours; the 31- and 32-bit edges of the plain version's halves and
+# the JAX engine's limbs; values whose products reach 2^124
+F62_CORNERS = [0, 1, 2, P62 - 1, P62 - 2, E62, E62 + 1, 2**31 - 1, 2**31,
+               2**32 - 1, 2**32, 2**61, P62 - 2**31, P62 - E62]
+
+
 # the port's CLI at small sizes (its -n: sequence length, chain length,
 # tree depth or signatures), each example once
 CLI_SIZES = (("fib", 1024), ("fib2", 1024), ("fib8", 1024),
@@ -186,22 +226,34 @@ def _rng_f128(rng, shape, device):
         device)
 
 
+def _rng_f62(rng, shape, device):
+    """Random canonical f62 elements as an int64 tensor."""
+    a = rng.integers(0, P62, size=shape, dtype=np.int64)
+    return torch.from_numpy(a).to(device)
+
+
+def _f62_of(values, device):
+    return torch.tensor([int(v) for v in values], dtype=torch.int64,
+                        device=device)
+
+
 def _f128_of(values, device):
     from winterfell_tpu_torch.ops import f128
 
     return f128.to_device(np.array(values, dtype=object), device)
 
 
-def _ntt_plain(x, n: int, inverse: bool):
-    """The f128 NTT of ops/f128.py:_ntt_core with every stage the plain
-    version of B13n."""
+def _ntt_plain(x, n: int, inverse: bool, eng=None):
+    """The NTT of ops/f128.py:_ntt_core (or ops/f62.py's, ``eng``) with
+    every stage the plain version of B13n (B14n)."""
     from winterfell_tpu_torch.ops import f128
 
-    perm, tw = f128.ntt_plan(n, inverse, x.device)
-    y = x.index_select(0, perm).reshape(n, -1, 2)
+    eng = eng or f128
+    perm, tw = eng.ntt_plan(n, inverse, x.device)
+    y = x.index_select(0, perm).reshape((n, -1) + tuple(eng.ELEM))
     half = 1
     while half < n:
-        y = f128.ntt_stage_plain(y, tw, half)
+        y = eng.ntt_stage_plain(y, tw, half)
         half *= 2
     return y.reshape(x.shape)
 
@@ -226,9 +278,11 @@ def _exact(a, b, what: str) -> float:
     return err
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card (CUDA events, after a warm-up)."""
-    fn()
+def _time_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of fn() on the card (CUDA events, after a warm-up
+    unless ``warm`` is False)."""
+    if warm:
+        fn()
     if REHEARSAL:
         t = time.perf_counter()
         for _ in range(reps):
@@ -243,6 +297,20 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _rotating(fn, *args):
+    """fn() over copies of its tensor arguments, the next copy at each call:
+    as many copies (at most 16) as hold four times the L2's 50 MiB, so that
+    a timed launch reads its inputs from HBM, as on the prove path, and not
+    from the L2 that the launch before it filled."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    n = min(16, -(-4 * 50 * 2**20 // max(nbytes, 1)))
+    copies = itertools.cycle(
+        [args] + [tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                        for a in args) for _ in range(n - 1)])
+    return lambda: fn(*next(copies))
 
 
 def _kernel_ms(fn, reps: int) -> float:
@@ -371,6 +439,27 @@ def _bound_ntt_stage(n: int, cols: int, half: int):
                   (2 * n * cols + half) * 16)
 
 
+def _bound_f62(x, y, mul: bool):
+    """B14 on x ∘ y: each element of the operands read once (a broadcast
+    operand's own, an int none) and each result written once, 8 bytes
+    each; 8 IMADs per product, none for an add or subtract."""
+    y_shape, y_numel = ((y.shape, y.numel()) if isinstance(y, torch.Tensor)
+                        else ((), 0))
+    n = torch.broadcast_shapes(x.shape, y_shape).numel()
+    return _bound(n * IMAD_PER_F62_MUL if mul else 0,
+                  (x.numel() + y_numel + n) * 8)
+
+
+def _bound_stage62(n: int, cols: int, half: int):
+    """One B14n stage: n/2·cols butterflies of one product each; every
+    element read and written once, the stage's half twiddles read once."""
+    return _bound(n // 2 * cols * IMAD_PER_F62_MUL, (2 * n * cols + half) * 8)
+
+
+def _bound_rp62(perms: int, nbytes: int):
+    return _bound(perms * IMAD_PER_RP62, nbytes)
+
+
 def _check_syncs(prover, on: bool) -> None:
     """With on, the prover's resident device run (_resident_run) runs under
     torch.cuda.set_sync_debug_mode("error"): any host synchronisation there
@@ -392,10 +481,12 @@ def _check_syncs(prover, on: bool) -> None:
 
 
 def _kernel_modules():
-    from winterfell_tpu_torch.ops import (blake3, device_coin, f128,
-                                          field_kernels, jive, rescue, sha3)
+    from winterfell_tpu_torch.ops import (blake3, device_coin, f62, f128,
+                                          field_kernels, jive, rescue, rp62,
+                                          sha3)
 
-    return (rescue, field_kernels, device_coin, blake3, sha3, jive, f128)
+    return (rescue, field_kernels, device_coin, blake3, sha3, jive, f128, f62,
+            rp62)
 
 
 def _launches():
@@ -418,7 +509,134 @@ def _words(rng, shape, device):
     return torch.from_numpy(a.view(np.int32)).to(device)
 
 
+def _phase3_cases(log2_cmp: int, rehearsal: bool):
+    """The card-vs-CPU cases of phase 3: (label, prover on a device,
+    trace on a device, AIR, route switch, routes, resident run sync-checked)
+    for each hasher of the f64 prover on each of its routes (fib 2^10), the
+    f128 prover (fib 2^10 and 2^8 quadratic, the Rescue chain at 2^8), aux
+    segments on both phased routes (rescue_raps -n 8, the f64 aux AIR),
+    Lamport with one signature on the three routes, and the f62 prover (fib
+    2^10, cubic: Blake3_256 and Rp62_248 on the three routes, Sha3_256, and
+    Rp62_248 with two partitions, quadratic). The parent proves each on the
+    card; _cpu_references proves each on the CPU."""
+    from winterfell_tpu_torch.air import FieldExtension, ProofOptions
+    from winterfell_tpu_torch.air.options import PartitionOptions
+    from winterfell_tpu_torch.crypto.hashers import (
+        Blake3_192, Blake3_256, Rp62_248, Rp64_256, RpJive64_256, Sha3_256)
+    from winterfell_tpu_torch.examples import fib_f62, lamport
+    from winterfell_tpu_torch.examples import fibonacci as fib
+    from winterfell_tpu_torch.examples import rescue as rescue128
+    from winterfell_tpu_torch.examples import rescue_raps as raps
+    from winterfell_tpu_torch.math.fields import F64, F128
+    from winterfell_tpu_torch.prover.device import GoldilocksProver
+    from winterfell_tpu_torch.prover.device_limb import F62Prover, F128Prover
+
+    n = 1 << log2_cmp
+    coin_routes = ("resident", "fused", "host")
+    aux_routes = ("fused", "host")
+    cases = []
+    options = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
+    Fib64 = GoldilocksProver.accelerate(fib.FibSmallProver)
+    # RpJive64_256 has no device coin: only the host-coin FRI loop
+    for hasher, routes in ((Rp64_256, coin_routes), (Blake3_256, coin_routes),
+                           (Blake3_192, coin_routes), (Sha3_256, coin_routes),
+                           (RpJive64_256, ("host",))):
+        cases.append((f"fib 2^{log2_cmp} {hasher.name}",
+                      lambda d, h=hasher: Fib64(options, h, device=d),
+                      lambda d: fib.build_fib_trace(F64, 2 * n, device=d),
+                      fib.FibSmallAir, "f64", routes, False))
+    fib_opts = {ext: ProofOptions(28, 8, 0, getattr(FieldExtension, ext), 8,
+                                  31) for ext in ("NONE", "QUADRATIC")}
+    rescue_opts = ProofOptions(42, 4, 0, FieldExtension.NONE, 8, 31)
+    # log2 trace rows: fib without and with the extension, Rescue (each
+    # with a FRI layer, so the routes differ)
+    lf, lq, lr = (6, 6, 6) if rehearsal else (log2_cmp, log2_cmp - 2,
+                                             log2_cmp - 2)
+    Fib128 = F128Prover.accelerate(fib.FibProver)
+    Rescue128 = F128Prover.accelerate(rescue128.RescueProver)
+    for lg, ext in ((lf, "NONE"), (lq, "QUADRATIC")):
+        cases.append((f"f128 fib trace {1 << lg} ({ext}, blake3_256)",
+                      lambda d, o=fib_opts[ext]: Fib128(o, Blake3_256,
+                                                        device=d),
+                      lambda d, lg=lg: fib.build_fib_trace(F128, 2 << lg,
+                                                           device=d),
+                      fib.FibAir, "limb", coin_routes, False))
+    cases.append((f"f128 rescue trace {1 << lr} (NONE, blake3_256)",
+                  lambda d: Rescue128(rescue_opts, Blake3_256, device=d),
+                  lambda d: rescue128.build_rescue_trace((1, 2),
+                                                         1 << (lr - 4)),
+                  rescue128.RescueAir, "limb", coin_routes, False))
+    # aux segments (Randomized AIR) on each phased route: rescue_raps -n 8
+    # without and with the extension and the f64 aux AIR with Rp64_256
+    # (cubic) and Blake3_256; the widest AIR, Lamport with one signature
+    # (trace 1024 x 22, sequence assertions), on all three
+    raps_seeds = [(i + 1, i + 2) for i in range(8)]
+    Raps = F128Prover.accelerate(raps.RescueRapsProver)
+    for ext in ("NONE", "QUADRATIC"):
+        cases.append((f"rescue_raps -n 8 ({ext}, blake3_256)",
+                      lambda d, o=fib_opts[ext]: Raps(o, Blake3_256,
+                                                      device=d),
+                      lambda d: raps.build_raps_trace(
+                          raps_seeds, raps_seeds[2:] + raps_seeds[:2]),
+                      raps.RescueRapsAir, "aux128", aux_routes, True))
+    pks1, msgs1, sigs1 = lamport.sign_messages(1)
+    Lamport = F128Prover.accelerate(lamport.LamportAggregateProver)
+    cases.append(("lamport 1 signature (NONE, blake3_256, trace 1024 x 22)",
+                  lambda d: Lamport(fib_opts["NONE"], Blake3_256, pks1,
+                                    msgs1, device=d),
+                  lambda d: lamport.build_lamport_trace(msgs1, sigs1),
+                  lamport.LamportAggregateAir, "limb", coin_routes, True))
+    cube = ProofOptions(28, 8, 0, FieldExtension.CUBIC, 8, 31)
+    AuxFib = GoldilocksProver.accelerate(fib.AuxFibProver)
+    for hasher in (Rp64_256, Blake3_256):
+        cases.append((f"f64 aux fib 2^{log2_cmp} (CUBIC, {hasher.name})",
+                      lambda d, h=hasher: AuxFib(cube, h, device=d),
+                      lambda d: fib.build_auxfib_trace(2 * n, device=d),
+                      fib.AuxFibAir, "aux64", aux_routes, True))
+    # the f62 prover: fib over f62 at trace 2^10 (the CLI's folding, no
+    # grinding)
+    F62Fib = F62Prover.accelerate(fib_f62.FibF62Prover)
+    parts62 = ProofOptions(28, 8, 0, FieldExtension.QUADRATIC, 8, 31,
+                           partition_options=PartitionOptions(2, 1))
+    for hasher, opts, routes, what in (
+            (Blake3_256, cube, coin_routes, "CUBIC"),
+            (Rp62_248, cube, coin_routes, "CUBIC"),
+            (Sha3_256, cube, ("resident",), "CUBIC"),
+            (Rp62_248, parts62, ("resident",), "QUADRATIC, 2 partitions")):
+        cases.append((f"f62 fib trace {n} ({what}, {hasher.name})",
+                      lambda d, o=opts, h=hasher: F62Fib(o, h, device=d),
+                      lambda d: fib_f62.build_fib_f62_trace(n),
+                      fib_f62.FibF62Air, "limb", routes, True))
+    return cases
+
+
+def _cpu_references(log2_cmp: int, rehearsal: bool) -> dict:
+    """The CPU's proof of every phase-3 case, each verified: {label: proof
+    bytes}. Runs in a process of its own (four intra-op threads), started
+    after phase 1, so that the CPU proves while the card runs phase 2."""
+    from winterfell_tpu_torch.verifier import verify
+
+    torch.set_num_threads(4)
+    out = {}
+    for label, make_prover, make_trace, air, _, _, _ in _phase3_cases(
+            log2_cmp, rehearsal):
+        prover, trace = make_prover("cpu"), make_trace("cpu")
+        proof = prover.prove(trace)
+        verify(air, proof, prover.get_pub_inputs(trace), prover.hasher)
+        out[label] = proof.to_bytes()
+    return out
+
+
 def main() -> int:
+    pool = []  # the process of _cpu_references, started after phase 1
+    try:
+        return _main(pool)
+    finally:
+        for executor in pool:
+            executor.shutdown(wait=True, cancel_futures=True)
+
+
+def _main(pool) -> int:
     if not REHEARSAL and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -429,6 +647,7 @@ def main() -> int:
     from winterfell_tpu_torch.crypto.hashers import (
         Blake3_192,
         Blake3_256,
+        Rp62_248,
         Rp64_256,
         RpJive64_256,
         Sha3_256,
@@ -441,11 +660,13 @@ def main() -> int:
     )
     from winterfell_tpu_torch.math.fields import F64, F128
     from winterfell_tpu_torch.examples import cli as port_cli
+    from winterfell_tpu_torch.examples import fib_f62
     from winterfell_tpu_torch.examples import fibonacci as fib128
     from winterfell_tpu_torch.examples import lamport
     from winterfell_tpu_torch.examples import rescue as rescue128
     from winterfell_tpu_torch.examples import rescue_raps as raps
     from winterfell_tpu_torch.ops import _build, device_coin, f128, field_kernels
+    from winterfell_tpu_torch.ops import f62, rp62
     from winterfell_tpu_torch.ops import goldilocks as gl
     from winterfell_tpu_torch.ops import blake3, jive, rescue, sha3
     from winterfell_tpu_torch.ops.device_hashers import DEVICE_HASHERS
@@ -453,7 +674,7 @@ def main() -> int:
     from winterfell_tpu_torch.prover import device as prover_device
     from winterfell_tpu_torch.prover import device_limb
     from winterfell_tpu_torch.prover.device import GoldilocksProver
-    from winterfell_tpu_torch.prover.device_limb import F128Prover
+    from winterfell_tpu_torch.prover.device_limb import F62Prover, F128Prover
     from winterfell_tpu_torch.utils import tracing
     from winterfell_tpu_torch.verifier import verify
 
@@ -496,6 +717,12 @@ def main() -> int:
     if not native.f128_available():
         raise AssertionError("the native f128 library did not build")
     log("native BLAKE3 and f128 libraries built and loaded")
+    # the CPU's reference proofs of phase 3, in a process of their own
+    executor = ProcessPoolExecutor(max_workers=1,
+                                   mp_context=multiprocessing.get_context(
+                                       "spawn"))
+    pool.append(executor)
+    refs_future = executor.submit(_cpu_references, log2_cmp, REHEARSAL)
     phase("1 device", t0)
 
     # 2 ----- kernels against their plain versions, on the card -------------
@@ -789,100 +1016,155 @@ def main() -> int:
                   (coin, k, d, reject))
     log("the byte coins' f128 draw kernels equal their plain version, "
         "rejected candidates included")
+
+    # B14: the f62 add, subtract and multiply at (LDE,) over random values,
+    # the first rows every ordered pair of the f62 corner set; then the
+    # operand layouts of the f62 prover, and above a lowered INDEX_LIMIT
+    pairs = [(x, y) for x in F62_CORNERS for y in F62_CORNERS]
+    a62, b62 = _rng_f62(rng, (big,), dev), _rng_f62(rng, (big,), dev)
+    a62[: len(pairs)] = _f62_of([x for x, _ in pairs], dev)
+    b62[: len(pairs)] = _f62_of([y for _, y in pairs], dev)
+    ops62 = {"add": (f62.f62_add, f62.add_plain, lambda x, y: x + y),
+             "sub": (f62.f62_sub, f62.sub_plain, lambda x, y: x - y),
+             "mul": (f62.f62_mul, f62.mul_plain, lambda x, y: x * y)}
+    for name, (op, plain, oracle) in ops62.items():
+        got = op(a62, b62)
+        check(f"f62_{name}", got, plain(a62, b62), (big,))
+        head = got[: len(pairs)].cpu().tolist()
+        if head != [oracle(x, y) % P62 for x, y in pairs]:
+            raise AssertionError(f"f62_{name}: corner results differ from "
+                                 "the Python-int oracle")
+    ext62, col62 = _rng_f62(rng, (big // 2, 3), dev), _rng_f62(rng, (big // 2,),
+                                                                dev)
+    blk62 = _rng_f62(rng, (big // 64, 2, 16, 3), dev)
+    tw62 = _rng_f62(rng, (1, 16, 1), dev)
+    deep62 = _rng_f62(rng, (2, 3, 2, 3, 2, 3, 2, 2), dev).permute(
+        *range(7, -1, -1))
+    layouts62 = [("int", ext62, 12345), ("int near p", ext62, P62 - 1),
+                 ("column", ext62, col62[:, None]),
+                 ("ext coeff", ext62, ext62[0][None]),
+                 ("butterfly", blk62[:, 1], tw62),
+                 ("component", ext62[..., 0], ext62[..., 1]),
+                 ("8 dims", deep62, deep62[..., :1])]
+    for lname, x, y in layouts62:
+        for name, (op, plain, _) in ops62.items():
+            check(f"f62_{name}", op(x, y), plain(x, y),
+                  (lname, tuple(x.shape)))
+    field_kernels.INDEX_LIMIT = 1 << 16
+    try:
+        before = f62.LAUNCHES["f62_mul"]
+        got = f62.f62_mul(ext62, col62[:, None])
+        splits = f62.LAUNCHES["f62_mul"] - before
+    finally:
+        field_kernels.INDEX_LIMIT = limit
+    check("f62_mul", got, f62.mul_plain(ext62, col62[:, None]),
+          ("split", splits))
+    if not REHEARSAL and splits < 2:
+        raise AssertionError(f"f62_mul: {splits} launches for a product "
+                             "above the lowered INDEX_LIMIT")
+    log(f"B14 f62 add, sub and mul equal their plain versions (and the "
+        f"oracle on {len(pairs)} corner pairs; {splits} launches above "
+        "INDEX_LIMIT)")
+    # B14n: whole NTTs of kernel stages against plain stages, both ways
+    for n_, cols in ((2, 1), (8, 3), (1024, 4), (1 << 16, 2), (big // 2, 2),
+                     (big, 2)):
+        x = _rng_f62(rng, (n_, cols), dev)
+        for inverse in (False, True):
+            check("f62_ntt_stage", f62._ntt_core(x, n_, inverse),
+                  _ntt_plain(x, n_, inverse, f62), (n_, cols, inverse))
+    log("B14n f62 NTT stages equal their plain version (2 ... 2^%d rows)"
+        % (big.bit_length() - 1))
+    # B15: Rp62_248 row hashes (1 ... 24 elements on random and corner
+    # rows, and the f62 paths' widths at the LDE's rows: the trace, a FRI
+    # layer), merges, trees of 1 ... 2^21 leaves (random words, and packed
+    # digests of corner elements), the coin's candidates below and above
+    # p62. The plain permutation is some 30k small launches, so each plain
+    # call takes a whole batch: a tree's levels are held against the plain
+    # merge of the kernel's level below, all levels in one call (level 1
+    # against the leaves': by induction the kernel's tree is the plain one)
+    corner62 = _f62_of(F62_CORNERS, dev)
+
+    def corners62(m, k):
+        idx = (torch.arange(m, device=dev)[:, None] * 3
+               + torch.arange(k, device=dev)[None, :] * 5) % len(F62_CORNERS)
+        return corner62[idx].contiguous()
+
+    for k in (1, 2, 3, 7, 8, 9, 16, 24):
+        rows = torch.cat([_rng_f62(rng, (500, k), dev), corners62(500, k)])
+        check("rp62_hash_rows", rp62.rp62_hash_rows(rows),
+              rp62.rp62_hash_rows_plain(rows), (1000, k))
+    for m, k in ((big, 2), (big // 8, 24)):
+        rows = _rng_f62(rng, (m, k), dev)
+        check("rp62_hash_rows", rp62.rp62_hash_rows(rows),
+              rp62.rp62_hash_rows_plain(rows), (m, k))
+    for n_, leaves in [(n_, _words(rng, (n_, 8), dev)) for n_ in (
+            1, 2, 4, tail // 2, tail, 2 * tail, chunk, 2 * chunk, big)] + [
+            (2 * chunk, rp62.pack(corners62(2 * chunk, 4)))]:
+        if n_ in (2, 2 * chunk, big):
+            check("rp62_merge_rows",
+                  rp62.rp62_merge_rows(leaves[0::2], leaves[1::2]),
+                  rp62.rp62_merge_rows_plain(leaves[0::2], leaves[1::2]),
+                  (n_, 8))
+        levels = rp62.rp62_merkle_levels(leaves)
+        if len(levels) != n_.bit_length() - 1:
+            raise AssertionError(f"rp62_merkle_tree: {len(levels)} levels "
+                                 f"over {n_} leaves")
+        if levels:
+            below = [leaves] + levels[:-1]
+            check("rp62_merkle_tree", torch.cat(levels),
+                  rp62.rp62_merge_rows_plain(
+                      torch.cat([x[0::2] for x in below]),
+                      torch.cat([x[1::2] for x in below])), ("leaves", n_))
+    seed62 = rp62.pack(_rng_f62(rng, (1, 4), dev))[0]
+    for c0, t in ((0, 5), (P62 - 3, 5), (2**64 - 9, 8), (0, 448)):
+        check("rp62_coin_candidates", rp62.coin_candidates(seed62, c0, t),
+              rp62.coin_candidates_plain(seed62, c0, t), (c0, t))
+    log("B15 rp62 row hashes, merges, trees (1 ... 2^%d leaves) and the "
+        "coin's candidates equal their plain versions"
+        % (big.bit_length() - 1))
+    # the f62 draws: the Rp62_248 coin's and the byte coins' instance over
+    # the f62 modulus; too few candidates launched and rejected ones
+    # planted (a first u64 of 2^64 - 1), so the kernel computes further
+    # candidates itself
+    for coin in ("rp62_248", "blake3_256", "blake3_192", "sha3_256"):
+        dw = DEVICE_HASHERS[coin].digest_words
+        name = DEVICE_HASHERS[coin].draw + "_f62"
+        _, next_word = device_coin.byte_coin_ops(coin)
+        for k, d, reject in ((1, 1, ()), (1, 3, ()), (5, 3, ()), (7, 1, ()),
+                             (3, 2, (1,)), (2, 3, (0, 1))):
+            seed_w = seed62 if coin == "rp62_248" else _words(rng, (dw,), dev)
+            cands = next_word(seed_w, 0, k).clone()
+            for j in reject:
+                cands[j, :2] = -1
+            got_e, got_c = byte_draw(coin, cands, seed_w, 0, k, d, "f62")
+            want_e, want_c = device_coin.draw_plain(cands, seed_w, 0, k, d,
+                                                    coin, "f62")
+            check(name, torch.cat([got_e.reshape(-1), got_c]),
+                  torch.cat([want_e.reshape(-1), want_c]),
+                  (coin, k, d, reject))
+    log("the f62 draws (Rp62_248, BLAKE3, SHA3 coins) equal their plain "
+        "version, rejected candidates included")
     phase("2 kernels", t0)
 
     # 3 ----- card vs CPU, every hasher on each of its routes ----------------
+    # (the CPU's proofs were made by the reference process started after
+    # phase 1, _cpu_references, while the card ran phase 2)
     t0 = time.perf_counter()
     Prover = GoldilocksProver.accelerate(FibSmallProver)
-    n_cmp = 1 << log2_cmp
     defaults = (prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON)
+    defaults128 = (device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON)
     marks = {"resident": "resident_pipeline", "fused": "fri_layers_fused"}
-    # the routes the JAX dispatch gives each hasher: RpJive64_256 has no
-    # device coin, so only the host-coin FRI loop
-    coin_routes = ("resident", "fused", "host")
-    hasher_routes = [(Rp64_256, coin_routes), (Blake3_256, coin_routes),
-                     (Blake3_192, coin_routes), (Sha3_256, coin_routes),
-                     (RpJive64_256, ("host",))]
 
     def routed(route: str) -> None:
         prover_device._RESIDENT_ON_F64 = route == "resident"
         prover_device._FUSED_FRI_ON = route != "host"
 
-    def check_route(route: str, what: str) -> None:
-        names = [s["name"] for s in tracing.last_spans()]
-        taken = ("resident" if marks["resident"] in names else
-                 "fused" if marks["fused"] in names else "host")
-        if taken != route:
-            raise AssertionError(f"{what}: took the {taken} route, not {route}")
-
-    for hasher, routes in hasher_routes:
-        cpu = Prover(options, hasher, device="cpu").prove(
-            build_fib_trace(F64, 2 * n_cmp)).to_bytes()
-        verify(FibSmallAir, Proof.from_bytes(cpu),
-               compute_fib_term(F64, 2 * n_cmp), hasher)
-        for route in routes:
-            routed(route)
-            proof = Prover(options, hasher, device=dev).prove(
-                build_fib_trace(F64, 2 * n_cmp, device=dev))
-            check_route(route, f"{hasher.name} on {dev}")
-            if proof.to_bytes() != cpu:
-                raise AssertionError(f"{hasher.name}: {route} proof bytes on "
-                                     f"{dev} differ from the CPU's")
-        log(f"fib 2^{log2_cmp} {hasher.name}: card bytes == CPU bytes on "
-            f"{', '.join(routes)} ({len(cpu)} B), verified")
-    prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
-    # the f128 prover (Blake3_256) on each of its routes: fib at two sizes,
-    # with and without the extension, and the Rescue chain
-    defaults128 = (device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON)
-
     def routed128(route: str) -> None:
         device_limb._RESIDENT_ON = route == "resident"
         device_limb._FUSED_FRI_ON = route != "host"
 
-    fib_opts = {ext: ProofOptions(28, 8, 0, getattr(FieldExtension, ext), 8,
-                                  31) for ext in ("NONE", "QUADRATIC")}
-    rescue_opts = ProofOptions(42, 4, 0, FieldExtension.NONE, 8, 31)
-    # log2 trace rows: fib without and with the extension, Rescue (each with
-    # a FRI layer, so the routes differ)
-    lf, lq, lr = (6, 6, 6) if REHEARSAL else (log2_cmp, log2_cmp - 2,
-                                             log2_cmp - 2)
-    f128_cases = [
-        ("fib", fib128.FibProver, fib128.FibAir, fib_opts["NONE"],
-         lambda d: fib128.build_fib_trace(F128, 2 << lf, device=d)),
-        ("fib", fib128.FibProver, fib128.FibAir, fib_opts["QUADRATIC"],
-         lambda d: fib128.build_fib_trace(F128, 2 << lq, device=d)),
-        ("rescue", rescue128.RescueProver, rescue128.RescueAir, rescue_opts,
-         lambda d: rescue128.build_rescue_trace((1, 2), 1 << (lr - 4)))]
-    for what, prover_cls, air_cls, opts, make_trace in f128_cases:
-        Prover128 = F128Prover.accelerate(prover_cls)
-        cpu_trace = make_trace("cpu")
-        host = Prover128(opts, Blake3_256, device="cpu")
-        cpu = host.prove(cpu_trace).to_bytes()
-        verify(air_cls, Proof.from_bytes(cpu), host.get_pub_inputs(cpu_trace),
-               Blake3_256)
-        for route in coin_routes:
-            routed128(route)
-            proof = Prover128(opts, Blake3_256, device=dev).prove(
-                make_trace(dev))
-            check_route(route, f"f128 {what} on {dev}")
-            if proof.to_bytes() != cpu:
-                raise AssertionError(f"f128 {what}: {route} proof bytes on "
-                                     f"{dev} differ from the CPU's")
-        ext_name = opts.field_extension.name
-        log(f"f128 {what} trace {cpu_trace.length} ({ext_name}): card bytes "
-            f"== CPU bytes on {', '.join(coin_routes)} ({len(cpu)} B), "
-            "verified")
-    device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
-    # aux segments (Randomized AIR), on each phased route with the resident
-    # switch left on (the dispatch never takes it for an aux segment):
-    # rescue_raps -n 8 without and with the extension and the f64 aux AIR
-    # with Rp64_256 (cubic) and Blake3_256; and the widest AIR, Lamport with
-    # one signature (trace 1024 x 22, sequence assertions), on all three
-    pks1, msgs1, sigs1 = lamport.sign_messages(1)
-    raps_seeds = [(i + 1, i + 2) for i in range(8)]
-    cube = ProofOptions(28, 8, 0, FieldExtension.CUBIC, 8, 31)
-    aux_routes = ("fused", "host")
-
+    # the aux segments' phased routes, with the resident switch left on
+    # (the dispatch never takes it for an aux segment)
     def aux128(route: str) -> None:
         device_limb._RESIDENT_ON = True
         device_limb._FUSED_FRI_ON = route == "fused"
@@ -891,50 +1173,37 @@ def main() -> int:
         prover_device._RESIDENT_ON_F64 = True
         prover_device._FUSED_FRI_ON = route == "fused"
 
-    def raps_trace(_):
-        return raps.build_raps_trace(raps_seeds,
-                                     raps_seeds[2:] + raps_seeds[:2])
+    switches = {"f64": routed, "limb": routed128, "aux128": aux128,
+                "aux64": aux64}
 
-    Raps = F128Prover.accelerate(raps.RescueRapsProver)
-    slice_cases = [
-        ("rescue_raps -n 8", Raps, (), fib_opts["NONE"], Blake3_256,
-         raps.RescueRapsAir, raps_trace, aux128, aux_routes),
-        ("rescue_raps -n 8", Raps, (), fib_opts["QUADRATIC"], Blake3_256,
-         raps.RescueRapsAir, raps_trace, aux128, aux_routes),
-        ("lamport 1 signature",
-         F128Prover.accelerate(lamport.LamportAggregateProver), (pks1, msgs1),
-         fib_opts["NONE"], Blake3_256, lamport.LamportAggregateAir,
-         lambda d: lamport.build_lamport_trace(msgs1, sigs1), routed128,
-         coin_routes)]
-    slice_cases += [
-        (f"f64 aux fib 2^{log2_cmp}",
-         GoldilocksProver.accelerate(fib128.AuxFibProver), (), cube, hasher,
-         fib128.AuxFibAir,
-         lambda d: fib128.build_auxfib_trace(2 * n_cmp, device=d), aux64,
-         aux_routes)
-        for hasher in (Rp64_256, Blake3_256)]
-    for (what, prover_cls, extra, opts, hasher, air_cls, make_trace, switch,
-         routes) in slice_cases:
-        cpu_trace = make_trace("cpu")
-        host = prover_cls(opts, hasher, *extra, device="cpu")
-        cpu = host.prove(cpu_trace).to_bytes()
-        verify(air_cls, Proof.from_bytes(cpu), host.get_pub_inputs(cpu_trace),
-               hasher)
+    def check_route(route: str, what: str) -> None:
+        names = [s["name"] for s in tracing.last_spans()]
+        taken = ("resident" if marks["resident"] in names else
+                 "fused" if marks["fused"] in names else "host")
+        if taken != route:
+            raise AssertionError(f"{what}: took the {taken} route, not {route}")
+
+    tb = time.perf_counter()
+    refs = refs_future.result()
+    log(f"the CPU's {len(refs)} reference proofs waited for "
+        f"{time.perf_counter() - tb:.2f} s")
+    for (label, make_prover, make_trace, _, switch, routes,
+         sync) in _phase3_cases(log2_cmp, REHEARSAL):
+        cpu = refs[label]
         for route in routes:
-            switch(route)
-            prover = prover_cls(opts, hasher, *extra, device=dev)
-            # Lamport's sequence assertions in the resident run, sync-checked
-            _check_syncs(prover, not REHEARSAL and route == "resident")
+            switches[switch](route)
+            prover = make_prover(dev)
+            _check_syncs(prover, sync and not REHEARSAL
+                         and route == "resident")
             proof = prover.prove(make_trace(dev))
-            check_route(route, f"{what} on {dev}")
+            check_route(route, f"{label} on {dev}")
             if proof.to_bytes() != cpu:
-                raise AssertionError(f"{what} {hasher.name}: {route} proof "
-                                     f"bytes on {dev} differ from the CPU's")
-        log(f"{what} ({opts.field_extension.name}, {hasher.name}, trace "
-            f"{cpu_trace.length} x {cpu_trace.info().width}): card bytes == "
-            f"CPU bytes on {', '.join(routes)} ({len(cpu)} B), verified")
-    device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
-    prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
+                raise AssertionError(f"{label}: {route} proof bytes on {dev} "
+                                     "differ from the CPU's")
+        prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
+        device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
+        log(f"{label}: card bytes == CPU bytes on {', '.join(routes)} "
+            f"({len(cpu)} B), the CPU's verified")
     phase("3 card vs cpu", t0)
 
     # 4 ----- the main path at full size, both routes ------------------------
@@ -1151,6 +1420,62 @@ def main() -> int:
                rr_prover.get_pub_inputs(rr_trace), rr_trace)
     must_launch128(("rescue_raps", "fused"), "blake3_256")
     device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
+    # this slice's paths: fib over f62 with the CLI's options and the cubic
+    # extension, Blake3_256 (grinding 16, scanned by the native BLAKE3) and
+    # Rp62_248 (no grinding: the host would scan one Rescue permutation per
+    # nonce), at trace 2^17 (LDE 2^20: resident) and 2^18 (LDE 2^21: phased
+    # with fused FRI); then one resident prove with Sha3_256
+    f62_kernels = ("f62_add", "f62_sub", "f62_mul", "f62_ntt_stage")
+    F62Fib = F62Prover.accelerate(fib_f62.FibF62Prover)
+
+    def must_launch62(key, hasher_name: str) -> None:
+        h = DEVICE_HASHERS[hasher_name]
+        names = f62_kernels + tuple(
+            k for k in h.launches if k not in ("gl_mul", h.draw)) + (
+            h.draw + "_f62",)
+        for name in names:
+            if not REHEARSAL and runs[key][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the "
+                                     f"{key} prove")
+        if not REHEARSAL and runs[key]["gl_mul"]:
+            raise AssertionError(f"the {key} prove launched K3")
+
+    # log2 trace rows of the resident and the fused path (in the rehearsal
+    # the smallest with a FRI layer, and a resident limit between them)
+    lg_res, lg_fused = (6, 7) if REHEARSAL else (log2_trace - 1, log2_trace)
+    if REHEARSAL:
+        device_limb._LEVEL_FUSE = 1 << (lg_res + 3)
+    f62_traces = {}
+    for lg in (lg_res, lg_fused):
+        tb = time.perf_counter()
+        f62_traces[lg] = fib_f62.build_fib_f62_trace(1 << lg)
+        log(f"f62 fib trace 2^{lg} built in {time.perf_counter() - tb:.2f} s")
+    for hasher, grinding in ((Blake3_256, 16), (Rp62_248, 0)):
+        opts62 = ProofOptions(28, 8, grinding, FieldExtension.CUBIC, 8, 31)
+        for lg, route in ((lg_res, "resident"), (lg_fused, "fused")):
+            tr = f62_traces[lg]
+            p62 = F62Fib(opts62, hasher, device=dev)
+            key = (f"fib_f62_{hasher.name}", route)
+            timed_path(p62, route, key,
+                       f"fib_f62 {hasher.name} {route}: trace 2^{lg}, LDE "
+                       f"2^{lg + 3}, grinding {grinding}",
+                       fib_f62.FibF62Air, p62.get_pub_inputs(tr), tr)
+            must_launch62(key, hasher.name)
+    device_limb._LEVEL_FUSE = level_fuse
+    tr = f62_traces[lg_res]
+    tracing.set_phase_sync(True)
+    _reset_launches()
+    t = time.perf_counter()
+    proof = F62Fib(ProofOptions(28, 8, 0, FieldExtension.CUBIC, 8, 31),
+                   Sha3_256, device=dev).prove(tr)
+    wall = time.perf_counter() - t
+    check_route("resident", "fib_f62 sha3_256")
+    runs["fib_f62_sha3_256", "resident"] = _launches()
+    verify(fib_f62.FibF62Air, proof, tr.get(1, tr.length - 1), Sha3_256)
+    must_launch62(("fib_f62_sha3_256", "resident"), "sha3_256")
+    log(f"fib_f62 sha3_256 resident: trace 2^{lg_res}, prove "
+        f"{wall:.4f} s (barriers on), verified")
+    del f62_traces, tr
     tracing.set_phase_sync(True)
     phase("4 main path", t0)
 
@@ -1166,11 +1491,13 @@ def main() -> int:
     t0 = time.perf_counter()
     reps = 2 if REHEARSAL else 20
 
-    def entry(shape, fn, plain, bound):
+    def entry(shape, fn, plain, bound, plain_warm=True):
+        """The kernel's and its plain version's times at one shape; a plain
+        version that takes seconds (B15's) is timed once, cold."""
         return {"shape": list(shape), "ms": _kernel_ms(fn, reps),
                 "host_ms": _time_ms(fn, reps),
-                "plain_ms": _time_ms(plain, 1), "bound_ms": bound[0],
-                "bound_by": bound[1]}
+                "plain_ms": _time_ms(plain, 1, plain_warm),
+                "bound_ms": bound[0], "bound_by": bound[1]}
 
     def hash_entry(m, k):
         x = _rng_field(rng, (m, k), dev)
@@ -1431,6 +1758,135 @@ def main() -> int:
           draw128_entry("sha3_256", 1, 1)],
          (("rescue_f128_sha3", "resident"), None)),
     ]
+    # B14, B14n, B15 and the f62 draws at the f62 paths' shapes: the LDE's
+    # elements, an extension column times base elements, a Python int; the
+    # last and first NTT stages of the fused path's LDE (2^21, 2) and the
+    # last of the resident path's (2^20, 2); the row hashes of the trace
+    # LDE, the composition LDE, a FRI layer and the OOD row, a level's
+    # merges and the coin's reseed, whole trees; the coin's candidates and
+    # draws for three cubic coefficients and for one element
+    # (B14 and B14n read their inputs from rotating copies: one matrix of
+    # 16-48 MiB would stay in the L2 between the graph's launches)
+    def f62_entry(name, x, y, shape):
+        op, plain, _ = ops62[name]
+        return entry(shape, _rotating(op, x, y), lambda: plain(x, y),
+                     _bound_f62(x, y, name == "mul"))
+
+    def stage62_entry(n_, cols, half):
+        x = _rng_f62(rng, (n_, cols), dev)
+        _, tw = f62.ntt_plan(n_, False, dev)
+        return entry((n_, cols, half),
+                     _rotating(lambda x_, tw_: f62.ntt_stage(x_, tw_, half),
+                               x, tw),
+                     lambda: f62.ntt_stage_plain(x, tw, half),
+                     _bound_stage62(n_, cols, half))
+
+    def rp62_hash_entry(m, k):
+        x = _rng_f62(rng, (m, k), dev)
+        return entry((m, k), lambda: rp62.rp62_hash_rows(x),
+                     lambda: rp62.rp62_hash_rows_plain(x),
+                     _bound_rp62(m * -(-k // 8), m * (8 * k + 32)), False)
+
+    def rp62_merge_entry(m):
+        level = _words(rng, (2 * m, 8), dev)
+        l, r = level[0::2], level[1::2]
+        return entry((m, 8), lambda: rp62.rp62_merge_rows(l, r),
+                     lambda: rp62.rp62_merge_rows_plain(l, r),
+                     _bound_rp62(m, m * 96), False)
+
+    def rp62_tree_entry(n_):
+        leaves = _words(rng, (n_, 8), dev)
+        return entry(("leaves", n_), lambda: rp62.rp62_merkle_levels(leaves),
+                     lambda: rp62.rp62_merkle_levels_plain(leaves),
+                     _bound_rp62(n_ - 1, (2 * n_ - 1) * 32), False)
+
+    def cand62_entry(t):
+        return entry((t, 8), lambda: rp62.coin_candidates(seed62, 0, t),
+                     lambda: rp62.coin_candidates_plain(seed62, 0, t),
+                     _bound_rp62(t, 32 + 32 * t), False)
+
+    def draw62_entry(coin, k, d):
+        """The draw from the candidates one launch gives it; the bound
+        counts what these inputs need: the candidates read up to the last
+        accepted one, and any computed past the launched ones."""
+        dw = DEVICE_HASHERS[coin].digest_words
+        seed_w = seed62 if coin == "rp62_248" else _words(rng, (dw,), dev)
+        t = device_coin.candidates_for(k, d, "f62")
+        cands = device_coin.byte_coin_ops(coin)[1](seed_w, 0, t)
+        used = int(device_coin.draw_plain(cands, seed_w, 0, k, d, coin,
+                                          "f62")[1][0])
+        extra = max(0, used - t)
+        nbytes = 4 * dw * (min(used, t) + 1) + 8 * k * d + 8
+        bound = (_bound_rp62(extra, nbytes) if coin == "rp62_248" else
+                 _bound_alu(extra * (ALU_PER_KECCAK if coin == "sha3_256"
+                                     else ALU_PER_BLAKE3), nbytes))
+        return entry((k, d, "candidates read", used),
+                     lambda: byte_draw(coin, cands, seed_w, 0, k, d, "f62"),
+                     lambda: device_coin.draw_plain(cands, seed_w, 0, k, d,
+                                                    coin, "f62"), bound)
+
+    x62, y62 = _rng_f62(rng, (big,), dev), _rng_f62(rng, (big,), dev)
+    e62, c62 = (_rng_f62(rng, (big // 2, 3), dev),
+                _rng_f62(rng, (big // 2, 1), dev))
+    f62_src = "winterfell_tpu_torch/csrc/f62.cu (f62.cuh)"
+    rp62_src = "winterfell_tpu_torch/csrc/rp62.cu (f62.cuh)"
+    rp62_paths = (("fib_f62_rp62_248", "resident"),
+                  ("fib_f62_rp62_248", "fused"))
+    jax62 = "jnp program, no Pallas kernel"
+    records62 = [
+        ("f62_add", f"winterfell_tpu/ops/f62.py:132 (base_add; {jax62})",
+         f62_src, [f62_entry("add", x62, y62, (big,)),
+                   f62_entry("add", e62, c62, (big // 2, 3, "column"))],
+         rp62_paths),
+        ("f62_sub", f"winterfell_tpu/ops/f62.py:140 (base_sub; {jax62})",
+         f62_src, [f62_entry("sub", x62, y62, (big,))], rp62_paths),
+        ("f62_mul", "winterfell_tpu/ops/f62.py:188 (base_mul over _fold62 "
+         f":155; {jax62})", f62_src,
+         [f62_entry("mul", x62, y62, (big,)),
+          f62_entry("mul", e62, c62, (big // 2, 3, "column")),
+          f62_entry("mul", x62, 12345, (big, "int"))], rp62_paths),
+        ("f62_ntt_stage", "winterfell_tpu/ops/f62.py:512 (the radix-2 "
+         f"stages of _ntt_small under _ntt_core :528; {jax62})", f62_src,
+         [stage62_entry(big, 2, big // 2), stage62_entry(big, 2, 1),
+          stage62_entry(big // 2, 2, big // 4)], rp62_paths),
+        ("rp62_hash_rows", "winterfell_tpu/ops/rp62_device.py:100 "
+         "(rp62_permutation_rows under _sponge_elem_rows :169; "
+         f"{jax62})", rp62_src,
+         [rp62_hash_entry(big, 2), rp62_hash_entry(big, 3),
+          rp62_hash_entry(big // 8, 24), rp62_hash_entry(1, 18)], rp62_paths),
+        ("rp62_merge_rows", "winterfell_tpu/ops/rp62_device.py:213 "
+         f"(rp62_merge_rows; {jax62})", rp62_src,
+         [rp62_merge_entry(big // 2), rp62_merge_entry(1)], rp62_paths),
+        ("rp62_merkle_tree", "winterfell_tpu/ops/rp62_device.py:261 "
+         "(merkle_levels_rp62 over rp62_merge_rows; jnp programs, no Pallas "
+         "kernel)", rp62_src,
+         [rp62_tree_entry(big), rp62_tree_entry(big // 8),
+          rp62_tree_entry(big // 512)], rp62_paths),
+        ("rp62_coin_candidates", "none: port-only (the JAX Rp62 coin's "
+         "next_candidate, winterfell_tpu/ops/device_coin.py:186)", rp62_src,
+         [cand62_entry(device_coin.candidates_for(k, 3, "f62"))
+          for k in (3, 1)], rp62_paths),
+        ("rp62_coin_draw_f62", "none: port-only (the JAX coin's "
+         "lax.while_loop with rp62_ext_decoder, "
+         "winterfell_tpu/ops/device_coin.py:209, :302)",
+         "winterfell_tpu_torch/csrc/rp62.cu (byte_coin.cuh)",
+         [draw62_entry("rp62_248", 3, 3), draw62_entry("rp62_248", 1, 3)],
+         rp62_paths),
+        ("blake3_coin_draw_f62", "none: port-only (the JAX coin's "
+         "lax.while_loop with limb_ext_decoder over f62, "
+         "winterfell_tpu/ops/device_coin.py:248, :302)",
+         "winterfell_tpu_torch/csrc/blake3.cu (byte_coin.cuh)",
+         [draw62_entry("blake3_256", 3, 3), draw62_entry("blake3_256", 1, 3)],
+         (("fib_f62_blake3_256", "resident"),
+          ("fib_f62_blake3_256", "fused"))),
+        ("sha3_coin_draw_f62", "none: port-only (the JAX coin's "
+         "lax.while_loop with limb_ext_decoder over f62, "
+         "winterfell_tpu/ops/device_coin.py:248, :302)",
+         "winterfell_tpu_torch/csrc/keccak.cu (byte_coin.cuh)",
+         [draw62_entry("sha3_256", 3, 3), draw62_entry("sha3_256", 1, 3)],
+         (("fib_f62_sha3_256", "resident"), None)),
+    ]
+
     def by_path(name):
         """The kernel's launches in one prove of every timed path that
         launched it."""
@@ -1457,7 +1913,8 @@ def main() -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"], "shapes": shapes})
-    for name, replaces, source, shapes, (key, phased_key) in records128:
+    for name, replaces, source, shapes, (key, phased_key) in (records128
+                                                              + records62):
         main = shapes[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -14,6 +14,7 @@ from winterfell_tpu.crypto.hashers import Rp64_256, rp64_permutation
 from winterfell_tpu.crypto.random_coin import DefaultRandomCoin
 from winterfell_tpu.math.fields import F64, Field
 from winterfell_tpu_torch.ops import device_coin as dc
+from winterfell_tpu_torch.ops import goldilocks as gl
 
 P = F64.p
 BASE = Field(F64, 1)
@@ -65,7 +66,7 @@ def test_draw_k_matches_host_coefficient_draws():
             coin = _coin(10 + d)
             coin.reseed(_root(d))
             expected = _draw(coin, ext, 5, BatchingMethod[method.upper()])
-            elems, counter = dc.make_draw_k(draw)(seed, 5, method)
+            elems, counter = dc.make_draw_k(draw, gl)(seed, 5, method)
             assert _rows(elems) == expected, (d, method)
             assert counter.tolist() == [coin.counter]
 

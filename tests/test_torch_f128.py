@@ -201,7 +201,7 @@ def test_f128_coin_conversions_and_native_trace():
                 host = DefaultRandomCoin(hasher, [(d,), (7,)], base)
                 host.reseed(root)
                 want = _draw(host, ext, 4, BatchingMethod[method.upper()])
-                elems, counter = dc.make_draw_k(draw)(seed, 4, method)
+                elems, counter = dc.make_draw_k(draw, tf)(seed, 4, method)
                 assert _words(elems) == want, (kind, d, method)
                 assert counter.tolist() == [host.counter]
         # a planted rejection: an element >= p in the second candidate

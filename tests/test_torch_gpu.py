@@ -276,3 +276,108 @@ def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):
     # a trace this small has no FRI layer (host coin): no one-row reseed
     assert launches["rp64_hash_rows"] > 0 and launches["rp64_merkle_tree"] > 0
     assert launches["gl_mul"] > 0
+
+
+def test_f62_kernels_equal_plain(cuda):
+    """B14 (f62 add, subtract, multiply: random and corner values, a Python
+    int, a broadcast column), B14n (whole NTTs of kernel stages), B15 (row
+    hashes of 1 ... 16 elements, a level's merges, trees of 1 ... 2^11
+    leaves, the coin's candidates below and above p62) and the f62 draws of
+    the Rp62_248, BLAKE3 and SHA3 coins (rejected candidates planted: the
+    kernel computes further ones itself) against their plain versions."""
+    from winterfell_tpu_torch.ops import f62, rp62
+
+    p = f62.P
+    rng = np.random.default_rng(62)
+
+    def rand(shape):
+        return torch.from_numpy(rng.integers(0, p, size=shape,
+                                             dtype=np.int64)).to(cuda)
+
+    corners = [0, 1, 2, p - 2, p - 1, 2**31, 2**32 - 1, 2**61, f62.E]
+    a, b = rand((4096,)), rand((4096,))
+    a[:81] = torch.tensor([x for x in corners for _ in corners], device=cuda)
+    b[:81] = torch.tensor([y for _ in corners for y in corners], device=cuda)
+    col, ext = rand((512,)), rand((512, 3))
+    for op, plain in ((f62.f62_add, f62.add_plain),
+                      (f62.f62_sub, f62.sub_plain),
+                      (f62.f62_mul, f62.mul_plain)):
+        assert torch.equal(op(a, b), plain(a, b)), op.__name__
+        assert torch.equal(op(a, 12345), plain(a, torch.tensor(12345)))
+        assert torch.equal(op(ext, col[:, None]), plain(ext, col[:, None]))
+    for n, cols in ((2, 1), (1024, 3), (1 << 14, 2)):
+        x = rand((n, cols))
+        for inverse in (False, True):
+            perm, tw = f62.ntt_plan(n, inverse, cuda)
+            y = x.index_select(0, perm).contiguous()
+            z = y.clone()
+            half = 1
+            while half < n:
+                y = f62.ntt_stage(y, tw, half)
+                z = f62.ntt_stage_plain(z, tw, half)
+                half *= 2
+            assert torch.equal(y, z), (n, cols, inverse)
+    for k in (1, 7, 8, 9, 16):
+        rows = rand((300, k))
+        rows[0] = p - 1
+        assert torch.equal(rp62.rp62_hash_rows(rows),
+                           rp62.rp62_hash_rows_plain(rows)), k
+    leaves = rp62.rp62_hash_rows(rand((2048, 2)))
+    assert torch.equal(rp62.rp62_merge_rows(leaves[0::2], leaves[1::2]),
+                       rp62.rp62_merge_rows_plain(leaves[0::2], leaves[1::2]))
+    for n in (1, 2, 4, 256, 512, 2048):
+        got = rp62.rp62_merkle_levels(leaves[:n].contiguous())
+        want = rp62.rp62_merkle_levels_plain(leaves[:n])
+        assert len(got) == len(want)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), n
+    seed = leaves[5]
+    for c0 in (0, p - 2, 2**64 - 8):
+        assert torch.equal(rp62.coin_candidates(seed, c0, 5),
+                           rp62.coin_candidates_plain(seed, c0, 5)), c0
+    for kind in ("rp62_248", "blake3_256", "sha3_256"):
+        _, next_candidates = device_coin.byte_coin_ops(kind)
+        for k, d, reject in ((1, 3, ()), (4, 1, ()), (3, 2, (0, 1))):
+            s = seed if kind == "rp62_248" else _words(k + d, (8,), cuda)
+            cands = next_candidates(s, 0, k).clone()
+            for j in reject:
+                cands[j, :2] = -1
+            got = device_coin.byte_draw_kernel(kind, cands, s, 0, k, d, "f62")
+            want = device_coin.draw_plain(cands, s, 0, k, d, kind, "f62")
+            assert torch.equal(got[0], want[0]), (kind, k, d, reject)
+            assert torch.equal(got[1], want[1]), (kind, k, d, reject)
+
+
+def test_f62_card_proofs_equal_cpu_proofs(cuda, monkeypatch):
+    """f62 fib, 64 rows, cubic: Blake3_256 and Rp62_248 on the three routes
+    on the card give the CPU's bytes; the resident device runs make no host
+    synchronisation."""
+    from winterfell_tpu_torch.crypto.hashers import Rp62_248
+    from winterfell_tpu_torch.examples import fib_f62
+    from winterfell_tpu_torch.prover.device_limb import F62Prover
+
+    opts = ProofOptions(28, 8, 0, FieldExtension.CUBIC, 4, 7)
+    prover_cls = F62Prover.accelerate(fib_f62.FibF62Prover)
+    checked = []
+    for hasher in (Blake3_256, Rp62_248):
+        cpu = prover_cls(opts, hasher, device="cpu").prove(
+            fib_f62.build_fib_f62_trace(64)).to_bytes()
+        for route in ("resident", "fused", "host"):
+            monkeypatch.setattr(device_limb, "_RESIDENT_ON",
+                                route == "resident")
+            monkeypatch.setattr(device_limb, "_FUSED_FRI_ON", route != "host")
+            prover = prover_cls(opts, hasher)
+            run = prover._resident_run
+
+            def sync_checked(*args, run=run, tag=hasher.name, **kwargs):
+                checked.append(tag)
+                prev = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    return run(*args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode(prev)
+
+            prover._resident_run = sync_checked
+            card = prover.prove(fib_f62.build_fib_f62_trace(64))
+            assert card.to_bytes() == cpu, (hasher.name, route)
+    assert checked == ["blake3_256", "rp62_248"]

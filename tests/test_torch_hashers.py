@@ -66,10 +66,11 @@ def _elements(rng, shape) -> np.ndarray:
 
 def _host_hashers_equal_jax_host_hashers():
     """hash, merge, merge_many, merge_with_int and hash_elements of every
-    f64 hasher, on random bytes, digests, counters (both sides of p) and
-    element lists of each extension degree."""
+    hasher (Rp62_248's as well; its f62 pins are in test_torch_f62.py), on
+    random bytes, digests, counters (both sides of p) and element lists of
+    each extension degree."""
     rng = np.random.default_rng(11)
-    assert set(port_hashers.HASHERS) == set(jax_hashers.HASHERS) - {"rp62_248"}
+    assert set(port_hashers.HASHERS) == set(jax_hashers.HASHERS)
     for name, port in port_hashers.HASHERS.items():
         ref = jax_hashers.HASHERS[name]
         assert (port.digest_size, port.collision_resistance, port.name) == \

@@ -1,7 +1,7 @@
 """The port stands alone: no file of winterfell_tpu_torch/ (nor chip_smoke.py)
-imports jax or the JAX package, and the state that defines a proof — Rescue
-and Jive constants, proof options, traces, digest words — crosses between
-the packages unchanged."""
+imports jax or the JAX package, and the state that defines a proof — Rescue,
+Jive and Rp62 constants, proof options, traces, digest words — crosses
+between the packages unchanged."""
 
 import os
 import re
@@ -57,8 +57,10 @@ def test_port_file_imports_neither_jax_nor_the_jax_package(path):
                                   "RP64_256_ARK2"])
 def test_rescue_constants_equal(name):
     assert getattr(port_rc, name) == getattr(jax_rc, name)
-    jive = "JIVE_" + name.rsplit("_", 1)[1]  # RpJive64_256's table of the kind
-    assert getattr(port_jive, jive) == getattr(jax_jive, jive)
+    kind = name.rsplit("_", 1)[1]
+    # RpJive64_256's and Rp62_248's tables of the kind
+    for table in ("JIVE_" + kind, "RP62_" + kind):
+        assert getattr(port_jive, table) == getattr(jax_jive, table)
 
 
 def test_tensor_roundtrip_keeps_bits():

@@ -1,4 +1,4 @@
-"""Host-side hash functions of the f64 prover with the reference
+"""Host-side hash functions of the provers with the reference
 Hasher/ElementHasher semantics (crypto/src/hash/{blake,sha,rescue}/*.rs):
 
 - digests are raw ``bytes`` — 32 for the *_256 hashers, 24 for Blake3_192;
@@ -11,7 +11,10 @@ Hasher/ElementHasher semantics (crypto/src/hash/{blake,sha,rescue}/*.rs):
   initialized to the absorbed element count; its digest bytes are the
   little-endian bytes of the 4 digest elements;
 - RpJive64_256 is Rescue-Prime over a state of 8 with the Jive compression
-  as its merge (rp64_256_jive/mod.rs).
+  as its merge (rp64_256_jive/mod.rs);
+- Rp62_248 is Rescue-Prime over f62, rate state[0..8), the element count in
+  state[11], digest = state[0..4) packed as 4×62 bits into 31 bytes
+  (rp62_248/mod.rs, digest.rs:36-62); the hasher of the f62 prover.
 
 These run the Fiat–Shamir transcript; bulk row hashing uses the row-parallel
 kernels in ``ops/`` (this module is their oracle).
@@ -21,11 +24,12 @@ from __future__ import annotations
 
 import hashlib
 
-from ..math.fields import F64, Field
+from ..math.fields import F62, F64, Field
 from . import native
 from .blake3_host import blake3 as _blake3_py
 from .rescue_constants import RP64_256_ARK1, RP64_256_ARK2, RP64_256_MDS
-from .rescue_jive_constants import JIVE_ARK1, JIVE_ARK2, JIVE_MDS
+from .rescue_jive_constants import (JIVE_ARK1, JIVE_ARK2, JIVE_MDS,
+                                    RP62_ARK1, RP62_ARK2, RP62_MDS)
 
 
 
@@ -334,11 +338,126 @@ class RpJive64_256:
         return _jive_sponge(base_elems, len(base_elems))
 
 
-# the f64 hashers (Rp62_248 comes with the f62 prover)
+# ================================================================================
+# Rp62_248 — Rescue-Prime over f62, 248-bit digests
+# (crypto/src/hash/rescue/rp62_248/mod.rs)
+# ================================================================================
+
+_P62 = F62.p
+RP62_ALPHA = 3
+RP62_INV_ALPHA = 3074416663688030891  # (2p − 1) / 3
+_RP62_STATE = 12
+_RP62_RATE = 8  # rate = state[0..8), capacity = state[8..12), count in state[11]
+
+
+def rp62_permutation(state):
+    """Rescue-XLIX over f62 (rp62_248/mod.rs): 7 rounds of S-box x^3, MDS,
+    ARK1, inverse S-box, MDS, ARK2. `state`: 12 ints."""
+    state = list(state)
+    for r in range(_NUM_ROUNDS):
+        for mds, ark, e in ((RP62_MDS, RP62_ARK1, RP62_ALPHA),
+                            (RP62_MDS, RP62_ARK2, RP62_INV_ALPHA)):
+            state = [pow(x, e, _P62) for x in state]
+            state = [(sum(m * x for m, x in zip(row, state)) + k) % _P62
+                     for row, k in zip(mds, ark[r])]
+    return state
+
+
+def _rp62_digest(elems) -> bytes:
+    """The 4 digest elements packed as 4×62 bits into 31 bytes and a zero
+    pad byte (rp62_248/digest.rs:36-50)."""
+    v = 0
+    for i, e in enumerate(elems):
+        v |= int(e) << (62 * i)
+    return v.to_bytes(32, "little")
+
+
+def _rp62_digest_to_elements(d: bytes):
+    v = int.from_bytes(d[:32], "little")
+    mask = (1 << 62) - 1
+    return [(v >> (62 * i)) & mask for i in range(4)]
+
+
+class Rp62_248:
+    digest_size = 31  # digests serialize to 31 bytes (digest.rs:58-62)
+    collision_resistance = 124
+    name = "rp62_248"
+
+    @classmethod
+    def _digest_elems(cls, d: bytes):
+        return _rp62_digest_to_elements(d + b"\x00" * (32 - len(d)))
+
+    @classmethod
+    def _squeeze(cls, state) -> bytes:
+        return _rp62_digest(rp62_permutation(state)[:4])[:31]
+
+    @classmethod
+    def hash(cls, data: bytes) -> bytes:
+        """7-byte chunks, a 1-byte terminator on the last one; the element
+        count in state[11] (rp62_248/mod.rs hash)."""
+        num_elements = -(-len(data) // 7)
+        state = [0] * _RP62_STATE
+        state[11] = num_elements % _P62
+        i = 0
+        for chunk in (data[j : j + 7] for j in range(0, len(data), 7)):
+            # as Rp64_256, the rate index i (not the chunk index) is compared
+            if i < num_elements - 1:
+                buf = chunk + b"\x00"
+            else:
+                buf = chunk + b"\x01" + b"\x00" * (7 - len(chunk))
+            state[i] = (state[i] + int.from_bytes(buf, "little")) % _P62
+            i += 1
+            if i % _RP62_RATE == 0:
+                state = rp62_permutation(state)
+                i = 0
+        if i > 0:
+            state = rp62_permutation(state)
+        return _rp62_digest(state[:4])[:31]
+
+    @classmethod
+    def merge(cls, d0: bytes, d1: bytes) -> bytes:
+        state = cls._digest_elems(d0) + cls._digest_elems(d1) + [0] * 4
+        state[11] = _RP62_RATE
+        return cls._squeeze(state)
+
+    @classmethod
+    def merge_many(cls, digests) -> bytes:
+        elems = [(e,) for d in digests for e in cls._digest_elems(d)]
+        return cls.hash_elements(elems, None)
+
+    @classmethod
+    def merge_with_int(cls, seed: bytes, value: int) -> bytes:
+        state = cls._digest_elems(seed) + [0] * 8
+        state[4] = value % _P62
+        if value < _P62:
+            state[11] = 5
+        else:
+            state[5] = value // _P62
+            state[11] = 6
+        return cls._squeeze(state)
+
+    @classmethod
+    def hash_elements(cls, elements, field) -> bytes:
+        base_elems = [b for e in elements for b in e]
+        state = [0] * _RP62_STATE
+        state[11] = len(base_elems) % _P62
+        i = 0
+        for e in base_elems:
+            state[i] = (state[i] + e) % _P62
+            i += 1
+            if i % _RP62_RATE == 0:
+                state = rp62_permutation(state)
+                i = 0
+        if i > 0:
+            state = rp62_permutation(state)
+        return _rp62_digest(state[:4])[:31]
+
+
 HASHERS = {
     "blake3_256": Blake3_256,
     "blake3_192": Blake3_192,
     "sha3_256": Sha3_256,
     "rp64_256": Rp64_256,
     "rp_jive64_256": RpJive64_256,
+    "rp62_248": Rp62_248,
 }

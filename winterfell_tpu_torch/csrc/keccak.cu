@@ -294,14 +294,8 @@ int wt_sha3_merkle_levels(const void* in, void* out, int log_n, int levels,
 int wt_sha3_coin_draw(const void* cands, const void* seed, void* elems,
                       void* counter_out, uint64_t counter0, int64_t t,
                       int64_t k, int d, int dw, void* stream) {
-  if (d < 1 || d > 4 || dw < 1 || dw > 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  byte_coin_draw_kernel<Sha3Coin><<<1, 32, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(cands), static_cast<const uint32_t*>(seed),
-      static_cast<uint64_t*>(elems), static_cast<uint64_t*>(counter_out),
-      counter0, t, k, d, dw);
-  return static_cast<int>(cudaGetLastError());
+  return launch_byte_coin_draw<Sha3Coin, CoinF64>(
+      cands, seed, elems, counter_out, counter0, t, k, d, dw, stream);
 }
 
 // The f128 draw: elems (k, d, 2) (lo, hi) out, d <= 2 (a candidate's 32
@@ -309,14 +303,16 @@ int wt_sha3_coin_draw(const void* cands, const void* seed, void* elems,
 int wt_sha3_coin_draw_f128(const void* cands, const void* seed, void* elems,
                            void* counter_out, uint64_t counter0, int64_t t,
                            int64_t k, int d, int dw, void* stream) {
-  if (d < 1 || d > 2 || dw < 1 || dw > 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  byte_coin_draw_kernel<Sha3Coin, 4><<<1, 32, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(cands), static_cast<const uint32_t*>(seed),
-      static_cast<uint64_t*>(elems), static_cast<uint64_t*>(counter_out),
-      counter0, t, k, d, dw);
-  return static_cast<int>(cudaGetLastError());
+  return launch_byte_coin_draw<Sha3Coin, CoinF128>(
+      cands, seed, elems, counter_out, counter0, t, k, d, dw, stream);
+}
+
+// The f62 draw: elems (k, d) out, each element < the f62 modulus.
+int wt_sha3_coin_draw_f62(const void* cands, const void* seed, void* elems,
+                          void* counter_out, uint64_t counter0, int64_t t,
+                          int64_t k, int d, int dw, void* stream) {
+  return launch_byte_coin_draw<Sha3Coin, CoinF62>(
+      cands, seed, elems, counter_out, counter0, t, k, d, dw, stream);
 }
 
 }  // extern "C"

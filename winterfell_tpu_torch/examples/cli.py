@@ -8,7 +8,11 @@ By default every example proves on the card with the port's device provers:
 included, which the JAX CLI proves on the host only), and
 ``GoldilocksProver.accelerate(FibSmallProver)`` for fib_small. ``--cpu``
 runs the same provers on the CPU; ``--host`` runs the port's host prover,
-what the JAX CLI runs without ``--device``.
+what the JAX CLI runs without ``--device``. ``-H`` takes the JAX CLI's
+hashers, ``rp62_248`` included; it hashes f62 elements, so the device
+provers of these f64 and f128 examples refuse it (as the JAX CLI's
+``--device`` does), and the f62 AIR proves with it outside the CLI
+(``examples/fib_f62.py``).
 
 Usage:
     python -m winterfell_tpu_torch.examples.cli fib -n 1024

@@ -7,8 +7,11 @@ and coin seeds the same way too — uint32 arrays of little-endian words — so
 crossing over is a dtype view. f128 elements differ: the JAX engine holds
 four 32-bit digits on a trailing axis of 4 (uint64 lanes), the port two
 64-bit words (lo, hi) on a trailing axis of 2; the f128 helpers convert
-between those, Python ints and tensors. These helpers take plain numpy
-arrays, ints and bytes only.
+between those, Python ints and tensors. So do f62 elements: the JAX engine
+holds two 32-bit limbs on a trailing axis of 2, the port one int64 (the
+canonical value, as a uint64 array of canonical values holds it:
+``tensor_from_u64``); the f62 helpers convert. These helpers take plain
+numpy arrays, ints and bytes only.
 """
 
 from __future__ import annotations
@@ -73,6 +76,20 @@ def limbs_from_tensor(t: torch.Tensor) -> np.ndarray:
     m = np.uint64(0xFFFFFFFF)
     return np.stack([w[..., 0] & m, w[..., 0] >> np.uint64(32),
                      w[..., 1] & m, w[..., 1] >> np.uint64(32)], axis=-1)
+
+
+def tensor_from_f62_limbs(limbs: np.ndarray, device="cpu") -> torch.Tensor:
+    """The JAX f62 engine's (..., 2) uint64 limb array → int64 tensor of the
+    same element values."""
+    d = np.ascontiguousarray(limbs, dtype=np.uint64)
+    values = d[..., 0] | (d[..., 1] << np.uint64(32))
+    return torch.from_numpy(values.view(np.int64).copy()).to(device)
+
+
+def f62_limbs_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """int64 f62 tensor → the JAX engine's (..., 2) uint64 limb array."""
+    v = u64_from_tensor(t)
+    return np.stack([v & np.uint64(0xFFFFFFFF), v >> np.uint64(32)], axis=-1)
 
 
 def trace_from_numpy(rows_u64: np.ndarray, device=None) -> TraceTable:

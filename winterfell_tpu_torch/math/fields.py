@@ -1,5 +1,5 @@
-"""Host-side exact field arithmetic over Goldilocks (f64) and f128 and their
-extensions.
+"""Host-side exact field arithmetic over Goldilocks (f64), f62 and f128 and
+their extensions.
 
 Mirrors the semantics (NOT the implementation) of the reference field layer
 (math/src/field/{f64,f128}/mod.rs, math/src/field/extensions/*.rs):
@@ -7,13 +7,17 @@ Mirrors the semantics (NOT the implementation) of the reference field layer
 - f64  "Goldilocks": p = 2^64 - 2^32 + 1, TWO_ADICITY = 32, GENERATOR = 7,
   quadratic extension poly x^2 - x + 2, cubic extension poly x^3 - x - 1
   (math/src/field/f64/mod.rs:251-267,398-499).
+- f62: p = 2^62 - 111*2^39 + 1, TWO_ADICITY = 39, GENERATOR = 3, quadratic
+  extension poly x^2 - x - 1, cubic extension poly x^3 + 2x + 2
+  (math/src/field/f62/mod.rs).
 - f128: p = 2^128 - 45*2^40 + 1, TWO_ADICITY = 40, GENERATOR = 3, quad poly
   x^2 - x - 1, cubic extension unsupported (math/src/field/f128/mod.rs:148-307).
 
 Elements are canonical Python ints (tuples of ints for extensions); the
 internal Montgomery representation of the reference is an implementation
 detail that never escapes into proof bytes, so we do not replicate it here.
-The tensor code in ``ops/goldilocks.py`` and ``ops/f128.py`` is held against
+The tensor code in ``ops/goldilocks.py``, ``ops/f62.py`` and ``ops/f128.py``
+is held against
 this module, which also serves all host-side protocol math (transcript,
 verifier, proof containers).
 """
@@ -89,6 +93,20 @@ F64 = BaseField(
     cube_x3=(1, 1, 0),  # x^3 - x - 1 = 0  =>  x^3 = 1 + x  (ca0, ca1, ca2)
 )
 
+F62_P = 2**62 - 111 * 2**39 + 1
+
+F62 = BaseField(
+    name="f62",
+    p=F62_P,
+    two_adicity=39,
+    two_adic_root=4421547261963328785,  # f62/mod.rs
+    generator=3,
+    element_bytes=8,
+    is_canonical=False,
+    quad_x2=(1, 1),  # x^2 - x - 1 = 0  =>  x^2 = x + 1
+    cube_x3=(F62_P - 2, F62_P - 2, 0),  # x^3 + 2x + 2 = 0  =>  x^3 = -2 - 2x
+)
+
 F128_P = 2**128 - 45 * 2**40 + 1
 
 F128 = BaseField(
@@ -103,7 +121,7 @@ F128 = BaseField(
     cube_x3=None,  # cubic extension not supported (f128/mod.rs:290-307)
 )
 
-BASE_FIELDS = {"f64": F64, "f128": F128}
+BASE_FIELDS = {"f64": F64, "f62": F62, "f128": F128}
 
 
 # ================================================================================
@@ -307,6 +325,9 @@ class Field:
 F64_1 = Field(F64, 1)
 F64_QUAD = Field(F64, 2)
 F64_CUBE = Field(F64, 3)
+F62_1 = Field(F62, 1)
+F62_QUAD = Field(F62, 2)
+F62_CUBE = Field(F62, 3)
 F128_1 = Field(F128, 1)
 F128_QUAD = Field(F128, 2)
 

@@ -1,5 +1,5 @@
-"""The Fiat-Shamir coin on the device for the f64 and f128 provers: the port
-of winterfell_tpu/ops/device_coin.py (its Rp64_256 and byte-hasher parts).
+"""The Fiat-Shamir coin on the device for the f64, f62 and f128 provers: the
+port of winterfell_tpu/ops/device_coin.py.
 
 The host :class:`~winterfell_tpu_torch.crypto.random_coin.DefaultRandomCoin`
 (crypto/src/random/default.rs:82-247) needs a host round trip at every
@@ -25,7 +25,20 @@ hashing further counters itself past a rejected candidate. Over f128
 are the d base elements of a draw, each accepted when < p (the JAX
 limb_ext_decoder, device_coin.py:235-270), and the draw kernel is the f128
 instance of the same loop (``wt_<draw>_f128``); the elements come out as
-(k, d, 2) tensors of (lo, hi) words.
+(k, d, 2) tensors of (lo, hi) words. Over f62 (``eng_name="f62"``) a draw's
+elements are a candidate's first d little-endian u64 values, each accepted
+when < p62 (about one in four of each), by the f62 instance
+(``wt_<draw>_f62``): an f62 element has f64's two words, but not its p.
+
+The Rp62_248 coin (the f62 prover's Rescue hasher) is a word coin too: its
+seed is the (8,) int32 packed digest (the 31 digest bytes and a zero pad
+byte), reseed is one merge of ``ops/rp62.py`` (B15), the candidates
+merge_with_int(seed, c) come from one B15 launch (``coin_candidates``,
+counters at or above p included: count 6 and c div p in lane 5), and its
+draw is the same loop over the f62 modulus, computing merge_with_int itself
+past the launched candidates (``wt_rp62_coin_draw_f62``,
+device_coin.py:168-230). The packed digest's bytes are what the host coin's
+draw reads, so decoding them as words is the reference's decoding.
 
 The Rp64_256 kernels are in ``csrc/rescue.cu`` beside K1 and K2, and share
 their permutation. Each has a wrapper (for a CUDA tensor it launches the kernel on
@@ -44,7 +57,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..math.fields import GOLDILOCKS_P
+from ..math.fields import F62, GOLDILOCKS_P
 from . import f128
 from . import goldilocks as gl
 from . import rescue
@@ -57,15 +70,35 @@ MAX_TRIES = 1000  # a draw gives up after this many candidates, as the host coin
 LAUNCHES: Dict[str, int] = {"rp64_permute_rows": 0, "rp64_coin_draw": 0,
                             "blake3_coin_draw": 0, "sha3_coin_draw": 0,
                             "blake3_coin_draw_f128": 0,
-                            "sha3_coin_draw_f128": 0}
+                            "sha3_coin_draw_f128": 0,
+                            "blake3_coin_draw_f62": 0, "sha3_coin_draw_f62": 0,
+                            "rp62_coin_draw_f62": 0}
+# each engine's modulus, which a draw's elements must stay below
+_P_OF = {"f64": P, "f62": F62.p}
+# candidates the plain draw loop computes at a time past the given ones
+_PLAIN_BATCH = 256
 
+
+def candidates_for(k: int, degree: int, eng_name: str) -> int:
+    """The candidates one launch computes for k draws of degree-``degree``
+    elements: k where nearly every candidate is accepted (f64, f128). Over
+    f62 a component is accepted with probability p/2^64 ≈ 1/4, so a draw
+    takes 4^degree candidates on average, and the launch computes
+    8·k·4^degree + 256: past them the draw kernel computes candidates one
+    by one in its single thread, an Rp62_248 permutation about 0.7 ms each,
+    while a launch of a few thousand costs what one of them costs (with
+    2·k·4^d + 64, the seven draws of a 2^17 Rp62_248 prove took 86 ms on an
+    H100, PERF.md). The plain loop continues past them in batches of
+    ``_PLAIN_BATCH``; the draws are the same for any count."""
+    return 8 * k * 4**degree + 256 if eng_name == "f62" else k
 
 
 def _byte_coin(kind: str):
-    """The record of a byte-hasher coin (``ops/device_hashers.py``), or
-    None for Rp64_256 and for a kind with no device coin."""
+    """The record of a word coin (``ops/device_hashers.py``): a byte hasher's
+    or Rp62_248's, whose seed and candidates are int32 digest words; None
+    for Rp64_256 and for a kind with no device coin."""
     h = DEVICE_HASHERS.get(kind)
-    return h if h is not None and h.coin and h.kind == "bytes" else None
+    return h if h is not None and h.coin and h.words else None
 
 
 def reset_launches() -> None:
@@ -100,9 +133,10 @@ def words_to_seed(words) -> bytes:
 
 def seed_tensor(seed: bytes, device, kind: str = "rp64_256") -> torch.Tensor:
     """Host coin seed bytes -> the device seed of coin ``kind``: (4,) int64
-    digest elements for Rp64_256, (dw,) int32 digest words for a byte
-    hasher."""
+    digest elements for Rp64_256, (dw,) int32 digest words for a word coin
+    (Rp62_248's 31 bytes with the zero pad byte)."""
     if _byte_coin(kind) is not None:
+        seed = seed + bytes(-len(seed) % 4)
         return torch.from_numpy(seed_to_words(seed).view(np.int32)).to(device)
     return torch.from_numpy(seed_to_u64(seed).view(np.int64)).to(device)
 
@@ -182,25 +216,16 @@ def rp64_coin_ops():
     return merge, next_candidates
 
 
-def _candidate_messages(seed, counter0: int, t: int):
-    """(t, dw + 2) int32 messages seed ‖ LE64(c) for c = counter0 + 1 ..
-    counter0 + t (blake/mod.rs:41-46 merge_with_int), built on the device
-    from the seed tensor: no host copy."""
-    ctr = torch.arange(counter0 + 1, counter0 + t + 1, dtype=torch.int64,
-                       device=seed.device)
-    return torch.cat([seed.reshape(1, -1).expand(t, seed.shape[0]),
-                      ctr.view(torch.int32).reshape(t, 2)], dim=1)
-
-
 def byte_coin_ops(kind: str):
-    """``(merge, next_candidates)`` for a byte-hasher coin
-    (winterfell_tpu/ops/device_coin.py:106):
+    """``(merge, next_candidates)`` for a word coin
+    (winterfell_tpu/ops/device_coin.py:106, :168):
 
-    - ``merge(seed, other)``: the reseed, hash(seed ‖ other) of two (dw,)
-      digests, one merge launch;
-    - ``next_candidates(seed, counter0, t)``: the (t, dw) candidate digests
-      hash(seed ‖ LE64(c)) for c = counter0 + 1 .. counter0 + t, one
-      row-hash launch."""
+    - ``merge(seed, other)``: the reseed, merge(seed, other) of two (dw,)
+      digests (hash(seed ‖ other) for a byte hasher), one merge launch;
+    - ``next_candidates(seed, counter0, t)``: the record's ``candidates``,
+      the (t, dw) candidate digests merge_with_int(seed, c) for c =
+      counter0 + 1 .. counter0 + t (hash(seed ‖ LE64(c)) for a byte
+      hasher), one launch."""
     bk = _byte_coin(kind)
     dw = bk.digest_words
 
@@ -208,11 +233,7 @@ def byte_coin_ops(kind: str):
         return bk.merge_rows(seed.reshape(1, dw),
                              other.reshape(1, dw)).reshape(dw)
 
-    def next_candidates(seed, counter0: int, t: int):
-        return bk.hash_rows(_candidate_messages(seed, counter0, t),
-                            4 * dw + 8, dw)
-
-    return merge, next_candidates
+    return merge, bk.candidates
 
 
 def u64_ext_decoder(p: int, degree: int, from_words: bool = False):
@@ -266,26 +287,28 @@ def f128_ext_decoder(degree: int):
 def draw_plain(cands, seed, counter0: int, k: int, d: int,
                kind: str = "rp64_256", eng_name: str = "f64"):
     """The serial loop of the draw kernels in plain PyTorch (reads the device
-    to test each candidate): (elems (k, d) for f64, (k, d, 2) for f128,
-    counter (1,)). ``cands`` are the permuted candidate states (t, 12) for
-    Rp64_256, the candidate digests (t, dw) for a byte hasher."""
+    to test each candidate): (elems (k, d) for f64 and f62, (k, d, 2) for
+    f128, counter (1,)). ``cands`` are the permuted candidate states (t, 12)
+    for Rp64_256, the candidate digests (t, dw) for a word coin."""
     bk = _byte_coin(kind)
     byte = bk is not None
     decode = (f128_ext_decoder(d) if eng_name == "f128" else
-              u64_ext_decoder(P, d, from_words=byte))
+              u64_ext_decoder(_P_OF[eng_name], d, from_words=byte))
+
+    def more(c0: int, t: int):
+        """The candidates of counters c0 + 1 .. c0 + t (the kernel computes
+        them one by one; the plain loop in batches, to the same values)."""
+        if byte:
+            return bk.candidates_plain(seed, c0, t)
+        return permute_rows_plain(_candidate_states(seed, c0, t))
+
     elems, ctr, j = [], counter0, 0
     for _ in range(k):
         for _ in range(MAX_TRIES):
             ctr += 1
-            if j < cands.shape[0]:
-                digest = cands[j] if byte else cands[j, 4:8]
-            elif byte:
-                dw = bk.digest_words
-                digest = bk.hash_rows_plain(
-                    _candidate_messages(seed, ctr - 1, 1), 4 * dw + 8, dw)[0]
-            else:
-                digest = permute_rows_plain(
-                    _candidate_states(seed, ctr - 1, 1))[0, 4:8]
+            if j == cands.shape[0]:
+                cands = torch.cat([cands, more(ctr - 1, _PLAIN_BATCH)])
+            digest = cands[j] if byte else cands[j, 4:8]
             j += 1
             ok, vals = decode(digest)
             if ok:
@@ -331,17 +354,20 @@ def draw_kernel(cands, seed, counter0: int, k: int, d: int):
 
 def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int,
                      eng_name: str = "f64"):
-    """The byte hasher's draw kernel on CUDA tensors: k draws of degree-d
+    """A word coin's draw kernel on CUDA tensors: k draws of degree-d
     elements from the candidate digests ``cands`` (t, dw) of counters
-    counter0 + 1 .., hashing further counters on the card if candidates are
-    rejected. Returns (elems (k, d), counter (1,)), elems (k, d, 2) with
+    counter0 + 1 .., computing further candidates on the card if candidates
+    are rejected. Returns (elems (k, d), counter (1,)), elems (k, d, 2) with
     ``eng_name="f128"`` (d <= 2); the counter is 2^64 − 1 (−1 as int64) if a
-    draw found nothing in 1000 candidates."""
+    draw found nothing in 1000 candidates. Rp62_248's draw is over f62
+    only."""
     bk = _byte_coin(kind)
     dw = bk.digest_words
     wide = eng_name == "f128"
-    if eng_name not in ("f64", "f128"):
-        raise ValueError(f"byte_draw_kernel: no draw over {eng_name!r}")
+    if eng_name not in ("f64", "f128", "f62") or bk.field not in (None,
+                                                                   eng_name):
+        raise ValueError(f"byte_draw_kernel: no {kind} draw over "
+                         f"{eng_name!r}")
     for t, what in ((cands, "cands"), (seed, "seed")):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError(f"byte_draw_kernel: {what} must be contiguous "
@@ -358,8 +384,8 @@ def byte_draw_kernel(kind: str, cands, seed, counter0: int, k: int, d: int,
     elems = torch.empty((k, d, 2) if wide else (k, d), dtype=gl.I64,
                         device=dev)
     counter = torch.empty((1,), dtype=gl.I64, device=dev)
-    name = f"{bk.draw}_f128" if wide else bk.draw
-    entry = getattr(bk.library(), f"wt_{name}")
+    name = bk.draw if eng_name == "f64" else f"{bk.draw}_{eng_name}"
+    entry = getattr(bk.library(dev), f"wt_{name}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = entry(cands.data_ptr(), seed.data_ptr(), elems.data_ptr(),
@@ -374,11 +400,12 @@ def make_draw(next_candidates, degree: int, kind: str = "rp64_256",
               eng_name: str = "f64"):
     """``draw(seed, k=1, counter=0) -> (elems (k, degree[, 2]), counter
     (1,))``: k consecutive draws with the host coin's counter semantics; the
-    k candidates come from one launch, the rejection loop runs in the draw
-    kernel on the card (its plain version on the CPU)."""
+    candidates (``candidates_for``) come from one launch, the rejection loop
+    runs in the draw kernel on the card (its plain version on the CPU)."""
 
     def draw(seed, k: int = 1, counter: int = 0):
-        cands = next_candidates(seed, counter, k)
+        cands = next_candidates(seed, counter,
+                                candidates_for(k, degree, eng_name))
         if seed.device.type == "cpu":
             return draw_plain(cands, seed, counter, k, degree, kind, eng_name)
         if _byte_coin(kind) is not None:
@@ -389,12 +416,13 @@ def make_draw(next_candidates, degree: int, kind: str = "rp64_256",
     return draw
 
 
-def make_draw_k(draw):
+def make_draw_k(draw, eng):
     """``draw_k(seed, k, method) -> (elems (k, d[, 2]), counter)``: the
     composition-coefficient draw (air/src/air/coefficients.rs): 'linear' = k
     independent draws, 'algebraic' = powers 1, a, a², ... of one draw,
-    'horner' = those powers reversed. The field is read off the draw: f128
-    elements carry a trailing axis of (lo, hi) words."""
+    'horner' = those powers reversed. The powers are the field engine
+    ``eng``'s (f64 and f62 elements have the same layout, not the same
+    field)."""
 
     def draw_k(seed, k: int, method: str = "linear"):
         if method == "linear":
@@ -402,9 +430,7 @@ def make_draw_k(draw):
         if method not in ("algebraic", "horner"):
             raise ValueError(f"unknown batching method {method!r}")
         alpha, counter = draw(seed, 1)
-        power_table = (f128.ext_power_table if alpha.ndim == 3 else
-                       gl.ext_power_table)
-        elems = power_table(alpha[0], k)
+        elems = eng.ext_power_table(alpha[0], k)
         return (elems.flip(0) if method == "horner" else elems), counter
 
     return draw_k
@@ -412,12 +438,13 @@ def make_draw_k(draw):
 
 @lru_cache(maxsize=None)
 def coin_bundle(kind: str, degree: int, eng_name: str = "f64"):
-    """(merge, draw) for a prover configuration: Rp64_256 and the byte
-    hashers over f64, the byte hashers over f128 at degree 1 or 2 (f128
-    has no cubic extension; Rp62_248 and f62 come with their slice)."""
+    """(merge, draw) for a prover configuration: Rp64_256 over f64,
+    Rp62_248 over f62, the byte hashers over f64, f62 and f128 (at degree 1
+    or 2: f128 has no cubic extension)."""
     h = DEVICE_HASHERS.get(kind)
-    if (h is None or not h.coin or eng_name not in ("f64", "f128")
-            or (eng_name == "f128" and (h.kind != "bytes" or degree > 2))):
+    if (h is None or not h.coin or eng_name not in ("f64", "f62", "f128")
+            or h.field not in (None, eng_name)
+            or (eng_name == "f128" and degree > 2)):
         raise ValueError(f"no device coin for {kind!r} over {eng_name!r}")
     if kind == "rp64_256":
         merge, next_candidates = rp64_coin_ops()

@@ -548,13 +548,13 @@ def to_u64(t: torch.Tensor) -> np.ndarray:
 
 
 # ================================================================================
-# The engine interface of the tensor provers (prover/device.py); ops/f128.py
-# gives the same names
+# The engine interface of the tensor provers (prover/device.py); ops/f62.py
+# and ops/f128.py give the same names
 # ================================================================================
 
 NAME = "f64"
 ELEM = ()  # the trailing axes of one element
-add, sub, mul = gl_add, gl_sub, gl_mul
+add, sub, mul, neg = gl_add, gl_sub, gl_mul, gl_neg
 pow_const, batch_inv = gl_pow_const, gl_batch_inv
 
 

@@ -176,7 +176,8 @@ def _kernels():
         lib.wt_sha3_merge_rows.restype = ctypes.c_int
         lib.wt_sha3_merkle_levels.argtypes = [vp, vp, i32_, i32_, vp]
         lib.wt_sha3_merkle_levels.restype = ctypes.c_int
-        for draw in (lib.wt_sha3_coin_draw, lib.wt_sha3_coin_draw_f128):
+        for draw in (lib.wt_sha3_coin_draw, lib.wt_sha3_coin_draw_f128,
+                     lib.wt_sha3_coin_draw_f62):
             draw.argtypes = [vp, vp, vp, vp, u64, i64, i64, i32_, i32_, vp]
             draw.restype = ctypes.c_int
         _lib = lib

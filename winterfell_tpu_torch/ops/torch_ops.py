@@ -2,10 +2,11 @@
 ``Air.evaluate_transition``.
 
 Same interface as :class:`winterfell_tpu_torch.ops.host.HostOps`, but arrays
-are int64 tensors on the prover's device: Goldilocks elements shaped
-(n_rows, degree) for :class:`TorchOps`, f128 elements shaped (n_rows,
-degree, 2) for :class:`TorchOpsF128`. The same AIR constraint code runs
-unchanged on any engine.
+are int64 tensors on the prover's device: Goldilocks or f62 elements shaped
+(n_rows, degree) for :class:`TorchOps` (over ``ops/goldilocks.py`` or
+``ops/f62.py``), f128 elements shaped (n_rows, degree, 2) for
+:class:`TorchOpsF128`. The same AIR constraint code runs unchanged on any
+engine.
 """
 
 from __future__ import annotations
@@ -13,17 +14,22 @@ from __future__ import annotations
 import torch
 
 from ..math.fields import Field
-from . import f128
+from . import f62, f128
 from . import goldilocks as gl
+
+# the engines of the fields whose elements are one int64
+_ENGINES = {"f64": gl, "f62": f62}
 
 
 class TorchOps:
     is_device = True
 
     def __init__(self, field: Field, device):
-        assert field.base.name == "f64", "TorchOps supports the Goldilocks field"
+        assert field.base.name in _ENGINES, (
+            "TorchOps supports the Goldilocks and f62 fields")
         self.field = field
         self.device = torch.device(device)
+        self.eng = _ENGINES[field.base.name]
 
     # -- construction -------------------------------------------------------
 
@@ -36,8 +42,9 @@ class TorchOps:
     def lift(self, e):
         if not isinstance(e, tuple):
             return e  # already a tensor (e.g. aux randomness)
-        return torch.cat([torch.full((1, 1), gl.const(v), dtype=gl.I64,
-                                     device=self.device) for v in e], dim=1)
+        return torch.cat([torch.full((1, 1), gl._s64(self.eng.const(v)),
+                                     dtype=gl.I64, device=self.device)
+                          for v in e], dim=1)
 
     def zeros(self, n: int):
         return torch.zeros((n, self.field.degree), dtype=gl.I64,
@@ -47,18 +54,18 @@ class TorchOps:
 
     def add(self, a, b):
         a, b = self._broadcast(a, b)
-        return gl.ext_add(a, b)
+        return self.eng.ext_add(a, b)
 
     def sub(self, a, b):
         a, b = self._broadcast(a, b)
-        return gl.ext_sub(a, b)
+        return self.eng.ext_sub(a, b)
 
     def neg(self, a):
-        return gl.gl_neg(a)
+        return self.eng.neg(a)
 
     def mul(self, a, b):
         a, b = self._broadcast(a, b)
-        return gl.ext_mul(a, b)
+        return self.eng.ext_mul(a, b)
 
     def exp(self, a, k: int):
         assert k >= 1
@@ -74,10 +81,10 @@ class TorchOps:
 
     def mul_base(self, a, s):
         if isinstance(s, int):
-            return gl.gl_mul(a, gl.const(s))
+            return self.eng.mul(a, self.eng.const(s))
         if s.ndim == a.ndim - 1:
             s = s[..., None]
-        return gl.gl_mul(a, s)
+        return self.eng.mul(a, s)
 
     @staticmethod
     def _broadcast(a, b):

@@ -11,7 +11,12 @@ chain, ProofOptions(42, 4, 16, NONE, 8, 31); ``--path fib_f128``: the CLI's
 fib, ``--path lamport``: bench.py's Lamport aggregate (2^(log2 - 10)
 signatures), ``--path rescue_raps``: the CLI's rescue_raps (-n 2^(log2 - 4),
 an aux segment), each with the CLI's ProofOptions(28, 8, 16, NONE, 8, 31);
-keys, signatures and traces are built before any prove), once to warm up,
+keys, signatures and traces are built before any prove), or the f62 paths
+with the F62Prover (``--path fib_f62``: fib over f62 with Blake3_256 or the
+BLAKE3 or SHA3 hasher ``--hasher`` names, ProofOptions(28, 8, 16, CUBIC, 8,
+31); ``--path fib_f62_rp62``: the same with Rp62_248 and no grinding,
+ProofOptions(28, 8, 0, CUBIC, 8, 31), whose nonces the host would scan one
+Rescue permutation at a time), once to warm up,
 then once under ``torch.profiler`` with phase barriers off, and prints one
 JSON object: the route the prove took (resident by default;
 ``WINTER_RESIDENT=0`` for the phased one), the wall time, the device time
@@ -87,7 +92,8 @@ def main() -> int:
                     help="free-running proves timed before the profiled one")
     ap.add_argument("--path", default="fib_small",
                     choices=("fib_small", "rescue_f128", "fib_f128",
-                             "lamport", "rescue_raps"))
+                             "lamport", "rescue_raps", "fib_f62",
+                             "fib_f62_rp62"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_prove: no CUDA device", file=sys.stderr)
@@ -97,10 +103,11 @@ def main() -> int:
     from .air import FieldExtension, ProofOptions
     from .crypto import hashers
     from .examples import lamport, rescue, rescue_raps
+    from .examples.fib_f62 import FibF62Prover, build_fib_f62_trace
     from .examples.fibonacci import FibProver, FibSmallProver, build_fib_trace
     from .math.fields import F64, F128
     from .prover.device import GoldilocksProver
-    from .prover.device_limb import F128Prover
+    from .prover.device_limb import F62Prover, F128Prover
     from .utils import tracing
 
     hasher = hashers.HASHERS[args.hasher]
@@ -108,6 +115,16 @@ def main() -> int:
         options = ProofOptions(32, 8, 0, FieldExtension.CUBIC, 8, 31)
         prover = GoldilocksProver.accelerate(FibSmallProver)(options, hasher)
         trace = build_fib_trace(F64, 2 << args.log2, device="cuda")
+    elif args.path.startswith("fib_f62"):
+        rp = args.path == "fib_f62_rp62"
+        if rp:
+            hasher = hashers.Rp62_248
+        elif args.hasher == "rp64_256":
+            hasher = hashers.Blake3_256
+        options = ProofOptions(28, 8, 0 if rp else 16, FieldExtension.CUBIC,
+                               8, 31)
+        prover = F62Prover.accelerate(FibF62Prover)(options, hasher)
+        trace = build_fib_f62_trace(1 << args.log2)
     else:
         if args.hasher == "rp64_256":
             hasher = hashers.Blake3_256
@@ -162,7 +179,8 @@ def main() -> int:
              "phased, host coin")
     device_us = sum(e - s for s, e in intervals)
     busy_us = _busy_us(intervals)
-    b13 = _b13_host_us() if args.path != "fib_small" else None
+    b13 = (_b13_host_us() if args.path not in ("fib_small", "fib_f62",
+                                                "fib_f62_rp62") else None)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "trace_log2": args.log2,

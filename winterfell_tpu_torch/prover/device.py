@@ -1,19 +1,22 @@
 """GoldilocksProver — the tensor prove() pipeline for f64 AIRs, with the
 hashers the JAX package's GoldilocksProver takes: Rp64_256, RpJive64_256,
 Blake3_256, Blake3_192 and Sha3_256 — and ``DeviceProver``, that pipeline over
-either field's engine, which the f128 prover (``prover/device_limb.py``)
-shares.
+any field's engine, which the f128 and f62 provers
+(``prover/device_limb.py``) share.
 
 Same 8-step protocol as the host :class:`winterfell_tpu_torch.prover.Prover`
 (prover/src/lib.rs:282-492), with every domain-sized step on a torch device
-through the field's engine (``ops/goldilocks.py``, ``ops/f128.py``: the same
-names over int64 elements or (lo, hi) word pairs):
+through the field's engine (``ops/goldilocks.py``, ``ops/f62.py``,
+``ops/f128.py``: the same names over int64 elements or (lo, hi) word
+pairs):
 
 - trace and composition interpolation + coset LDE: tensor NTT;
 - row hashing and Merkle levels: the hasher's kernels (``ops/rescue.py``,
-  ``ops/jive.py``, ``ops/blake3.py``, ``ops/sha3.py``); Rescue digests are
-  (m, 4) int64 field elements, BLAKE3 and SHA3 digests (m, 8) or (m, 6)
-  int32 words (their ``<u4`` bytes are the digest bytes);
+  ``ops/jive.py``, ``ops/blake3.py``, ``ops/sha3.py``, ``ops/rp62.py``);
+  Rp64 and Jive digests are (m, 4) int64 field elements, BLAKE3, SHA3 and
+  Rp62_248 digests (m, 8) or (m, 6) int32 words (their ``<u4`` bytes are
+  the digest bytes; Rp62_248's 31 and a zero pad byte, which the proof
+  drops);
 - constraint evaluation: the AIR's own ``evaluate_transition`` run with
   the engine's :mod:`~winterfell_tpu_torch.ops.torch_ops` handle over the
   whole CE domain; sequence assertions evaluate their value polynomials
@@ -92,7 +95,9 @@ def _device_hasher(hasher) -> DeviceHasher:
     """The device record of an f64 hasher (``ops/device_hashers.py``); any
     other hasher fails the JAX GoldilocksProver's assertion."""
     h = DEVICE_HASHERS.get(getattr(hasher, "name", None))
-    if h is None or HASHERS[h.name] is not hasher:
+    # a hasher of another field's elements (Rp62_248: f62's) is refused
+    if (h is None or h.field not in (None, "f64")
+            or HASHERS[h.name] is not hasher):
         raise AssertionError(
             "GoldilocksProver requires a Rp64_256, RpJive64_256, BLAKE3 or "
             "SHA3 hasher (device row hashing)")
@@ -114,8 +119,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _u64_rows(t: np.ndarray) -> np.ndarray:
-    return np.ascontiguousarray(t.view(np.uint64).astype("<u8"))
+def _digest_bytes(row: np.ndarray, hasher) -> bytes:
+    """A digest's bytes from its uint64 lanes: the hasher's digest size of
+    them (Rp62_248's packed words end in a zero pad byte, which proofs and
+    the transcript leave out, winterfell_tpu/prover/device.py:255-262)."""
+    lanes = np.ascontiguousarray(row.view(np.uint64).astype("<u8"))
+    return lanes.tobytes()[: hasher.digest_size]
 
 
 def _as_i64(t: torch.Tensor) -> torch.Tensor:
@@ -201,7 +210,8 @@ class PrehashedMerkleTree(MerkleTree):
         self.hasher = hasher
         self._n = leaves.shape[0]
         if root is None:  # pull it now (callers that batch pulls pass it)
-            root = _u64_rows(gl.to_u64(_as_i64(self.levels[1])))[0].tobytes()
+            root = _digest_bytes(gl.to_u64(_as_i64(self.levels[1]))[0],
+                                 hasher)
         self._root = root
         self.leaves = _RecordingView(self._n)
         self.nodes = _RecordingView(self._n)
@@ -230,12 +240,14 @@ class PrehashedMerkleTree(MerkleTree):
 
     def prove_batch_finish(self, state):
         indexes, leaf_idx, leaf_slot, by_size, slots, batch = state
-        leaf_rows = _u64_rows(batch.get(leaf_slot))
-        leaf_map = {i: leaf_rows[k].tobytes() for k, i in enumerate(leaf_idx)}
+        leaf_rows = batch.get(leaf_slot)
+        leaf_map = {i: _digest_bytes(leaf_rows[k], self.hasher)
+                    for k, i in enumerate(leaf_idx)}
         node_map = {}
         for size, nodes in by_size.items():
-            rows = _u64_rows(batch.get(slots[size]))
-            node_map.update({i: rows[k].tobytes() for k, i in enumerate(nodes)})
+            rows = batch.get(slots[size])
+            node_map.update({i: _digest_bytes(rows[k], self.hasher)
+                             for k, i in enumerate(nodes)})
         self.leaves = _DictView(leaf_map, self._n)
         self.nodes = _DictView(node_map, self._n)
         return super().prove_batch(indexes)
@@ -325,6 +337,8 @@ def _hash_rows_part(eng, rows, psize: int, h: DeviceHasher):
         return hash_fn(rows_2d)
     digests = [hash_fn(rows_2d[:, i : i + psize].contiguous())
                for i in range(0, k, psize)]
+    if h.combine is not None:  # Rp62_248: merge_many of the packed digests
+        return h.combine(digests)
     return hash_fn(torch.cat(digests, dim=1))
 
 
@@ -444,6 +458,11 @@ class DeviceProver(Prover):
         LDE, the fused FRI phase's largest LDE), read at each prove."""
         raise NotImplementedError
 
+    def _ood_limited(self, h: DeviceHasher) -> bool:
+        """Whether the resident route takes the hasher only for an OOD row
+        of at most ``_OOD_BYTES_LIMIT`` bytes (its one-row OOD hash)."""
+        raise NotImplementedError
+
     def _upload_trace(self, trace) -> torch.Tensor:
         eng = self.engine
         cache = trace.device_cache() if hasattr(trace, "device_cache") else {}
@@ -485,7 +504,8 @@ class DeviceProver(Prover):
         if (resident_on and coin_kind is not None
                 and not air.trace_info.is_multi_segment and n_layers > 0
                 and rem_n >= 2 and lde_size <= resident_limit
-                and (h.kind == "field" or ood_bytes <= _OOD_BYTES_LIMIT)):
+                and (not self._ood_limited(h)
+                     or ood_bytes <= _OOD_BYTES_LIMIT)):
             return self._prove_resident(air, trace, channel, phases, fri_opts,
                                         n_layers, rem_n, coin_kind)
         return self._prove_phased(air, trace, channel, phases, fri_opts,
@@ -597,10 +617,10 @@ class DeviceProver(Prover):
             pulled = _pull_small([lv[-1] for _, _, lv in outs] + [seed])
             for (transposed, leaves, levels), root in zip(outs, pulled):
                 tree = PrehashedMerkleTree(leaves, levels, self.hasher,
-                                           _u64_rows(root)[0].tobytes())
+                                           _digest_bytes(root[0], self.hasher))
                 channel.commitments.raw += tree.root  # reseeded on the device
                 fri_layers.append((tree, transposed))
-            channel.public_coin.seed = dc.u64_to_seed(pulled[-1])
+            channel.public_coin.seed = _digest_bytes(pulled[-1], self.hasher)
             channel.public_coin.counter = 0
             phases.mark("fri_layers_fused", num_layers=n_layers)
         else:
@@ -649,7 +669,8 @@ class DeviceProver(Prover):
         pulled = _pull_small([m_levels[-1], c_levels[-1]]
                              + [lv[-1] for _, _, lv in fri_outs]
                              + [main_pair, comp_pair, seed])
-        roots = [_u64_rows(r)[0].tobytes() for r in pulled[: 2 + n_layers]]
+        roots = [_digest_bytes(r[0], self.hasher)
+                 for r in pulled[: 2 + n_layers]]
         main_tree = PrehashedMerkleTree(m_leaves, m_levels, self.hasher,
                                         roots[0])
         channel.commitments.raw += main_tree.root  # reseeds ran on device
@@ -665,7 +686,7 @@ class DeviceProver(Prover):
             tree = PrehashedMerkleTree(leaves, levels, self.hasher, root)
             channel.commitments.raw += tree.root
             fri_layers.append((tree, transposed))
-        channel.public_coin.seed = dc.u64_to_seed(pulled[-1])
+        channel.public_coin.seed = _digest_bytes(pulled[-1], self.hasher)
         channel.public_coin.counter = 0
         phases.mark("resident_pipeline", lde_domain_size=air.lde_domain_size)
         return self._finish_proof(air, channel, phases, rem_n, rem_coeffs,
@@ -698,10 +719,13 @@ class DeviceProver(Prover):
         for i in range(n_layers):
             eng.fri_inv_offset_powers(lde_size // n_fold**i, n_fold, offset,
                                       dev)
-        if air.ext_field.degree == 3:  # f64 only
+        if air.ext_field.degree == 3:  # f64 and f62
             eng.frobenius_table(3, dev)
-        if self._device_hasher().kind == "field":  # Rp64_256's coin
+        h = self._device_hasher()
+        if h.name == "rp64_256":  # the coin's permutation reads the ARK table
             rescue._table("ark", dev)
+        elif h.library is not None and dev.type == "cuda":
+            h.library(dev)  # loaded, with its constant tables on the card
         self._ce_consts(air, boundary)
         self._lde_xs(air)
         return self._seq_coeffs(air, boundary)
@@ -723,7 +747,7 @@ class DeviceProver(Prover):
         n_b = air.context.num_assertions
         h = self._device_hasher()
         merge, draw = dc.coin_bundle(coin_kind, d, eng.NAME)
-        draw_k = dc.make_draw_k(draw)
+        draw_k = dc.make_draw_k(draw, eng)
         method_c = _BATCH_NAMES[int(air.options.batching_constraints)]
         method_d = _BATCH_NAMES[int(air.options.batching_deep)]
 
@@ -1050,3 +1074,7 @@ class GoldilocksProver(DeviceProver):
     def _routes(self):
         return (_RESIDENT_ON_F64, _FUSED_FRI_ON, _RESIDENT_LIMIT_F64,
                 _FRI_FUSE_LIMIT_F64)
+
+    def _ood_limited(self, h: DeviceHasher) -> bool:
+        # the JAX f64 dispatch limits the byte hashers' OOD row only
+        return h.kind == "bytes"
