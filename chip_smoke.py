@@ -28,10 +28,15 @@ Phases, each printed with its elapsed seconds as it ends:
    multiply at (2^21,) over random values and every pair of an f62 corner
    set, at the f62 prover's operand layouts and split above a lowered
    INDEX_LIMIT; B14n (whole NTTs) at sizes 2 ... 2^21; B15 (Rp62_248) row
-   hashes of 1 ... 24 elements and at (2^21, 2), (2^21, 3), (2^18, 24),
-   merges and trees of 1 ... 2^21 leaves, the coin's candidates below and
-   above p62; the f62 draws of the Rp62_248, BLAKE3 and SHA3 coins with
-   rejected candidates planted.
+   hashes at the rate edges (1 ... 24 elements, random, mixed corners and
+   rows of one corner value: p - 1, E = 2^62 mod p, E + 1, 2^61, p - E, ...)
+   and at (2^21, 2), (2^18, 24), 1, 3, 5, 127 and 129 rows (no multiple of
+   a thread group or a block), merges at those counts and of corner
+   digests, trees of 1 ... 2^21 leaves (a block with fewer merges than a
+   group's threads included), the coin's candidates below and above p62
+   (1 ... 448, from p62 - 2 and up to 2^64 - 1, a seed of p - 1's); the
+   f62 draws of the Rp62_248, BLAKE3 and SHA3 coins with rejected
+   candidates planted.
 3. card vs CPU (the CPU's proofs come from a process of their own, started
    after phase 1, which proves while the card runs phase 2): a fib proof
    at trace 2^10 with each f64 hasher on the card,
@@ -77,7 +82,8 @@ Phases, each printed with its elapsed seconds as it ends:
 5. kernel times at the main path's shapes against their bounds: device time
    per launch from launches replayed in a CUDA graph, beside the time per
    call when the wrapper is called back to back from Python; the whole
-   2^21-leaf trees, one-row latencies, the composition width.
+   2^21-leaf trees, one-row latencies (B15: one merge, one candidate, and
+   the draw's own permutations in one thread), the composition width.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict. Any failure exits non-zero before that verdict. Without a
@@ -1089,17 +1095,33 @@ def _main(pool) -> int:
                + torch.arange(k, device=dev)[None, :] * 5) % len(F62_CORNERS)
         return corner62[idx].contiguous()
 
-    for k in (1, 2, 3, 7, 8, 9, 16, 24):
-        rows = torch.cat([_rng_f62(rng, (500, k), dev), corners62(500, k)])
+    # rows of one corner value in every element (p - 1, E, E + 1, 2^61, p -
+    # E, ... in every rate lane), at the rate edges; row counts that are no
+    # multiple of a thread group or a block
+    uniform62 = corner62[:, None]
+    for k in (1, 2, 3, 7, 8, 9, 16, 17, 24):
+        rows = torch.cat([_rng_f62(rng, (500, k), dev), corners62(500, k),
+                          uniform62.expand(-1, k)]).contiguous()
         check("rp62_hash_rows", rp62.rp62_hash_rows(rows),
-              rp62.rp62_hash_rows_plain(rows), (1000, k))
+              rp62.rp62_hash_rows_plain(rows), (rows.shape[0], k))
+    for m in (1, 3, 5, 127, 129):
+        rows = corners62(m, 9)
+        check("rp62_hash_rows", rp62.rp62_hash_rows(rows),
+              rp62.rp62_hash_rows_plain(rows), (m, 9))
+        level = rp62.pack(corners62(2 * m, 4))
+        check("rp62_merge_rows",
+              rp62.rp62_merge_rows(level[0::2], level[1::2]),
+              rp62.rp62_merge_rows_plain(level[0::2], level[1::2]), (m, 8))
     for m, k in ((big, 2), (big // 8, 24)):
         rows = _rng_f62(rng, (m, k), dev)
         check("rp62_hash_rows", rp62.rp62_hash_rows(rows),
               rp62.rp62_hash_rows_plain(rows), (m, k))
     for n_, leaves in [(n_, _words(rng, (n_, 8), dev)) for n_ in (
-            1, 2, 4, tail // 2, tail, 2 * tail, chunk, 2 * chunk, big)] + [
-            (2 * chunk, rp62.pack(corners62(2 * chunk, 4)))]:
+            1, 2, 4, 8, tail // 2, tail, 2 * tail, chunk, 2 * chunk, big)] + [
+            (2 * chunk, rp62.pack(corners62(2 * chunk, 4))),
+            (16, rp62.pack(corner62[[3, 3, 5, 5, 6, 6, 11, 11, 13, 13, 4, 4,
+                                     0, 0, 1, 1]][:, None].expand(
+                                         -1, 4).contiguous()))]:
         if n_ in (2, 2 * chunk, big):
             check("rp62_merge_rows",
                   rp62.rp62_merge_rows(leaves[0::2], leaves[1::2]),
@@ -1116,9 +1138,14 @@ def _main(pool) -> int:
                       torch.cat([x[0::2] for x in below]),
                       torch.cat([x[1::2] for x in below])), ("leaves", n_))
     seed62 = rp62.pack(_rng_f62(rng, (1, 4), dev))[0]
-    for c0, t in ((0, 5), (P62 - 3, 5), (2**64 - 9, 8), (0, 448)):
-        check("rp62_coin_candidates", rp62.coin_candidates(seed62, c0, t),
-              rp62.coin_candidates_plain(seed62, c0, t), (c0, t))
+    for s62, c0, t in ((seed62, 0, 5), (seed62, P62 - 3, 5),
+                       (seed62, 2**64 - 9, 8), (seed62, 0, 448),
+                       (seed62, 0, 1), (seed62, 2**64 - 130, 129),
+                       (seed62, 0, 127),
+                       (rp62.pack(uniform62[[3, 3, 3, 3], 0][None])[0],
+                        P62 - 2, 3)):
+        check("rp62_coin_candidates", rp62.coin_candidates(s62, c0, t),
+              rp62.coin_candidates_plain(s62, c0, t), (c0, t))
     log("B15 rp62 row hashes, merges, trees (1 ... 2^%d leaves) and the "
         "coin's candidates equal their plain versions"
         % (big.bit_length() - 1))
@@ -1805,14 +1832,18 @@ def _main(pool) -> int:
                      lambda: rp62.coin_candidates_plain(seed62, 0, t),
                      _bound_rp62(t, 32 + 32 * t), False)
 
-    def draw62_entry(coin, k, d):
-        """The draw from the candidates one launch gives it; the bound
-        counts what these inputs need: the candidates read up to the last
-        accepted one, and any computed past the launched ones."""
+    def draw62_entry(coin, k, d, own=False):
+        """The draw from the candidates one launch gives it (``own``: from
+        one planted rejection, so the kernel computes every further
+        candidate itself, one whole state in one thread); the bound counts
+        what these inputs need: the candidates read up to the last accepted
+        one, and any computed past the launched ones."""
         dw = DEVICE_HASHERS[coin].digest_words
         seed_w = seed62 if coin == "rp62_248" else _words(rng, (dw,), dev)
-        t = device_coin.candidates_for(k, d, "f62")
+        t = 1 if own else device_coin.candidates_for(k, d, "f62")
         cands = device_coin.byte_coin_ops(coin)[1](seed_w, 0, t)
+        if own:
+            cands[0, :2] = -1
         used = int(device_coin.draw_plain(cands, seed_w, 0, k, d, coin,
                                           "f62")[1][0])
         extra = max(0, used - t)
@@ -1820,7 +1851,8 @@ def _main(pool) -> int:
         bound = (_bound_rp62(extra, nbytes) if coin == "rp62_248" else
                  _bound_alu(extra * (ALU_PER_KECCAK if coin == "sha3_256"
                                      else ALU_PER_BLAKE3), nbytes))
-        return entry((k, d, "candidates read", used),
+        return entry((k, d, "candidates read", used) + (
+            ("computed", extra) if own else ()),
                      lambda: byte_draw(coin, cands, seed_w, 0, k, d, "f62"),
                      lambda: device_coin.draw_plain(cands, seed_w, 0, k, d,
                                                     coin, "f62"), bound)
@@ -1865,13 +1897,13 @@ def _main(pool) -> int:
         ("rp62_coin_candidates", "none: port-only (the JAX Rp62 coin's "
          "next_candidate, winterfell_tpu/ops/device_coin.py:186)", rp62_src,
          [cand62_entry(device_coin.candidates_for(k, 3, "f62"))
-          for k in (3, 1)], rp62_paths),
+          for k in (3, 1)] + [cand62_entry(1)], rp62_paths),
         ("rp62_coin_draw_f62", "none: port-only (the JAX coin's "
          "lax.while_loop with rp62_ext_decoder, "
          "winterfell_tpu/ops/device_coin.py:209, :302)",
          "winterfell_tpu_torch/csrc/rp62.cu (byte_coin.cuh)",
-         [draw62_entry("rp62_248", 3, 3), draw62_entry("rp62_248", 1, 3)],
-         rp62_paths),
+         [draw62_entry("rp62_248", 3, 3), draw62_entry("rp62_248", 1, 3),
+          draw62_entry("rp62_248", 1, 1, own=True)], rp62_paths),
         ("blake3_coin_draw_f62", "none: port-only (the JAX coin's "
          "lax.while_loop with limb_ext_decoder over f62, "
          "winterfell_tpu/ops/device_coin.py:248, :302)",

@@ -159,6 +159,10 @@ def test_rp62_ops_equal_jax_device_ops_and_host_hasher():
     state = _rand(rng, (20, 12))
     state[0] = P - 1
     state[1] = 0
+    # every lane at p - 1 (the kernels' MDS sums at their largest), at
+    # E = 2^62 mod p, E + 1, 2^61 and p - E
+    for i, v in enumerate((P - 1, tf.E, tf.E + 1, 2**61, P - tf.E)):
+        state[2 + i] = v
     _same(rp62._perm_plain(_port(state)),
           jr.rp62_permutation_rows(_jax(state)), "permutation")
     # row hashes against the host Rp62_248.hash_elements; k = 9 (a full and

@@ -281,8 +281,9 @@ def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):
 def test_f62_kernels_equal_plain(cuda):
     """B14 (f62 add, subtract, multiply: random and corner values, a Python
     int, a broadcast column), B14n (whole NTTs of kernel stages), B15 (row
-    hashes of 1 ... 16 elements, a level's merges, trees of 1 ... 2^11
-    leaves, the coin's candidates below and above p62) and the f62 draws of
+    hashes of 1 ... 24 elements and rows of one corner value, 1 ... 129
+    rows, merges, trees of 1 ... 2^11 leaves, the coin's candidates below
+    and above p62) and the f62 draws of
     the Rp62_248, BLAKE3 and SHA3 coins (rejected candidates planted: the
     kernel computes further ones itself) against their plain versions."""
     from winterfell_tpu_torch.ops import f62, rp62
@@ -317,23 +318,43 @@ def test_f62_kernels_equal_plain(cuda):
                 z = f62.ntt_stage_plain(z, tw, half)
                 half *= 2
             assert torch.equal(y, z), (n, cols, inverse)
-    for k in (1, 7, 8, 9, 16):
-        rows = rand((300, k))
+    # rows of one corner value in every element (p - 1, E, E + 1, 2^61,
+    # p - E) at the rate edges; row counts that are no multiple of a thread
+    # group or a block
+    edges = torch.tensor([p - 1, f62.E, f62.E + 1, 2**61, p - f62.E],
+                         device=cuda)
+    for k in (1, 7, 8, 9, 16, 17, 24):
+        rows = torch.cat([rand((300, k)), edges[:, None].expand(-1, k)])
         rows[0] = p - 1
         assert torch.equal(rp62.rp62_hash_rows(rows),
                            rp62.rp62_hash_rows_plain(rows)), k
+    for m in (1, 3, 5, 127, 129):
+        rows = rand((m, 9))
+        assert torch.equal(rp62.rp62_hash_rows(rows),
+                           rp62.rp62_hash_rows_plain(rows)), m
+        level = rp62.pack(rand((2 * m, 4)))
+        assert torch.equal(rp62.rp62_merge_rows(level[0::2], level[1::2]),
+                           rp62.rp62_merge_rows_plain(level[0::2],
+                                                      level[1::2])), m
     leaves = rp62.rp62_hash_rows(rand((2048, 2)))
     assert torch.equal(rp62.rp62_merge_rows(leaves[0::2], leaves[1::2]),
                        rp62.rp62_merge_rows_plain(leaves[0::2], leaves[1::2]))
-    for n in (1, 2, 4, 256, 512, 2048):
+    # sibling digests of equal corner elements: every rate lane of a merge
+    # at p - 1, E, ...
+    level = rp62.pack(edges.repeat_interleave(2)[:8, None].expand(-1, 4)
+                      .contiguous())
+    assert torch.equal(rp62.rp62_merge_rows(level[0::2], level[1::2]),
+                       rp62.rp62_merge_rows_plain(level[0::2], level[1::2]))
+    for n in (1, 2, 4, 8, 256, 512, 2048):
         got = rp62.rp62_merkle_levels(leaves[:n].contiguous())
         want = rp62.rp62_merkle_levels_plain(leaves[:n])
         assert len(got) == len(want)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), n
     seed = leaves[5]
-    for c0 in (0, p - 2, 2**64 - 8):
-        assert torch.equal(rp62.coin_candidates(seed, c0, 5),
-                           rp62.coin_candidates_plain(seed, c0, 5)), c0
+    for c0, t in ((0, 5), (p - 2, 5), (2**64 - 8, 5), (0, 1), (p - 3, 129),
+                  (2**64 - 130, 127)):
+        assert torch.equal(rp62.coin_candidates(seed, c0, t),
+                           rp62.coin_candidates_plain(seed, c0, t)), c0
     for kind in ("rp62_248", "blake3_256", "sha3_256"):
         _, next_candidates = device_coin.byte_coin_ops(kind)
         for k, d, reject in ((1, 3, ()), (4, 1, ()), (3, 2, (0, 1))):

@@ -16,8 +16,11 @@
 // counters counter0 + 1 .. counter0 + t (one row hash launch); past those the
 // kernel hashes further counters itself with Hash::candidate, so a
 // rejection needs no host read. One thread does the scan, so the result is
-// the serial loop's. A draw that finds nothing in 1000 candidates (the host
-// coin's limit) stops the kernel with the counter set to 2^64 - 1. Bound:
+// the serial loop's; where Hash::WARP is true, the whole warp runs the loop
+// in step (the same reads and branches in every thread) so that a group of
+// threads can compute a candidate together, and thread 0 writes. A draw
+// that finds nothing in 1000 candidates (the host coin's limit) stops the
+// kernel with the counter set to 2^64 - 1. Bound:
 // latency (one thread, k digest reads); it runs once per Fiat-Shamir draw.
 // elems takes EW / 2 u64 words per element: (k, d) for f64 and f62,
 // (k, d, 2) (lo, hi) for f128. The Rp62_248 coin (rp62.cu) draws with the
@@ -58,7 +61,8 @@ __global__ void byte_coin_draw_kernel(const uint32_t* __restrict__ cands,
                                       uint64_t* __restrict__ counter_out,
                                       uint64_t counter0, int64_t t, int64_t k,
                                       int d, int dw) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  if (blockIdx.x != 0 || (!Hash::WARP && threadIdx.x != 0)) return;
+  const bool writer = threadIdx.x == 0;
   uint64_t ctr = counter0;
   int64_t j = 0;
   for (int64_t got = 0; got < k; ++got) {
@@ -91,7 +95,7 @@ __global__ void byte_coin_draw_kernel(const uint32_t* __restrict__ cands,
         }
         if (e < d) ok = ok && lt;
       }
-      if (ok) {
+      if (ok && writer) {
 #pragma unroll
         for (int e = 0; e < E; ++e)
           if (e < d) {
@@ -101,15 +105,15 @@ __global__ void byte_coin_draw_kernel(const uint32_t* __restrict__ cands,
       }
     }
     if (!ok) {
-      counter_out[0] = ~0ull;
+      if (writer) counter_out[0] = ~0ull;
       return;
     }
   }
-  counter_out[0] = ctr;
+  if (writer) counter_out[0] = ctr;
 }
 
-// One launch of the draw loop (a single thread does the scan); d at most
-// the elements a 32-byte digest holds. Returns cudaGetLastError(), or
+// One launch of the draw loop (one thread, or one warp, does the scan); d
+// at most the elements a 32-byte digest holds. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a d or dw the loop does not take.
 template <class Hash, class Mod>
 int launch_byte_coin_draw(const void* cands, const void* seed, void* elems,

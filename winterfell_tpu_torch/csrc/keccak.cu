@@ -160,6 +160,7 @@ __device__ __forceinline__ void merge(const uint32_t* left,
 
 // The coin's candidate hash(seed ‖ LE64(ctr)) of a dw-word seed.
 struct Sha3Coin {
+  static constexpr bool WARP = false;  // one thread hashes a candidate
   __device__ static void candidate(const uint32_t* seed, int dw, uint64_t ctr,
                                    uint32_t (&out)[8]) {
     uint32_t m[16];

@@ -3,12 +3,16 @@ with ctypes, and reports what the compiler made of a source.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
 ``_build/lib<name>-<hash>.so`` beside the package, keyed by a hash of the
-source, the shared headers (``csrc/*.cuh``) and the flags, at first use. ``build_all()`` starts one ``nvcc`` per
-source at once and waits for all of them. No PyTorch header is included, so a
+source, the shared headers (``csrc/*.cuh``) and the flags, at first use
+(``load(name, defines)`` builds a variant with ``-D`` macros, such as
+``RP62_GROUP=1`` for the layouts ``rp62_layouts.py`` compares).
+``build_all()`` starts one ``nvcc`` per source at once and waits for all
+of them. No PyTorch header is included, so a
 build takes seconds. The C entry points take raw device pointers, sizes and
 a stream, and return ``cudaGetLastError()`` of their launch.
 
     python -m winterfell_tpu_torch.ops._build --sass [FILE ...] [--out DIR]
+        [--define MACRO=VALUE ...]
 
 prints, per source (every ``csrc/*.cu`` by default), one JSON line read from
 the source built as ``load`` builds it, to a cubin, with ``-Xptxas -v`` (and
@@ -57,7 +61,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("rescue", "goldilocks", "blake3", "keccak", "jive", "f128", "f62",
            "rp62")
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 
 
 def _tool(name: str) -> str:
@@ -67,10 +71,14 @@ def _tool(name: str) -> str:
     return path
 
 
-def _target(name: str) -> str:
+def _flags(defines=()) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _target(name: str, defines=()) -> str:
     """The library's path, named by a hash of the source, every header of
     csrc/ and the flags."""
-    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(" ".join(_flags(defines)).encode())
     for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
             os.path.join(CSRC, f) for f in os.listdir(CSRC)
             if f.endswith(".cuh")):
@@ -79,15 +87,15 @@ def _target(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
 
 
-def _start(name: str):
+def _start(name: str, defines=()):
     """Starts nvcc for ``name`` unless its library exists; returns
     (process or None, temp path, target path)."""
-    target = _target(name)
+    target = _target(name, defines)
     if os.path.exists(target):
         return None, None, target
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", tmp,
+    cmd = [_tool("nvcc"), *_flags(defines), "-o", tmp,
            os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -110,13 +118,15 @@ def build_all(names: List[str] = SOURCES) -> None:
         _finish(name, proc, tmp, target)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with ``-D`` for each
+    of ``defines``), built first if needed."""
+    key = (name,) + tuple(defines)
+    lib = _libs.get(key)
     if lib is None:
-        proc, tmp, target = _start(name)
+        proc, tmp, target = _start(name, defines)
         _finish(name, proc, tmp, target)
-        lib = _libs[name] = ctypes.CDLL(target)
+        lib = _libs[key] = ctypes.CDLL(target)
     return lib
 
 
@@ -186,7 +196,8 @@ def _sass_by_function(cubin: str):
 def _loops(ins):
     """[(first index, last index, trip count or None)] of the loops: the
     conditional backward branches, with the immediate of the ISETP that sets
-    the branch's predicate inside the body as the trip count."""
+    the branch's predicate inside the body as the trip count (2 where the
+    body clears the uniform predicate the branch reads)."""
     where = {a: i for i, (a, _, _, _) in enumerate(ins)}
     loops = []
     for i, (addr, pred, op, args) in enumerate(ins):
@@ -210,6 +221,13 @@ def _loops(ins):
             if not (op2.startswith("PLOP3") and up):
                 break
             reg = up.group(0)
+        if trip is None and reg.startswith("UP") and any(
+                op2.startswith("UPLOP3") and re.match(
+                    rf"\s*{reg}, UPT, UPT, UPT, UPT, 0x40,", args2)
+                for _, _, op2, args2 in ins[where[target]:i]):
+            # a loop of two passes: the body clears the uniform predicate
+            # that the entry set
+            trip = 2
         loops.append((where[target], i, trip))
     return loops
 
@@ -267,19 +285,19 @@ def _ptxas_info(text: str) -> dict:
     return info
 
 
-def _arch_flags():
-    flags = list(NVCC_FLAGS)
+def _arch_flags(defines=()):
+    flags = _flags(defines)
     for f in ("-shared", "-Xcompiler", "-fPIC"):
         flags.remove(f)
     return flags
 
 
-def sass_report(source: str, work: str) -> dict:
+def sass_report(source: str, work: str, defines=()) -> dict:
     t0 = time.perf_counter()
     base = os.path.splitext(os.path.basename(source))[0]
     cubin = os.path.join(work, f"{base}.cubin")
-    text = _run([_tool("nvcc"), *_arch_flags(), "-cubin", "-Xptxas", "-v",
-                 "-o", cubin, source])
+    text = _run([_tool("nvcc"), *_arch_flags(defines), "-cubin", "-Xptxas",
+                 "-v", "-o", cubin, source])
     with open(os.path.join(work, f"{base}.ptxas.txt"), "w") as f:
         f.write(text)
     info = _ptxas_info(text)
@@ -294,7 +312,7 @@ def sass_report(source: str, work: str) -> dict:
                          "classes": _classify(op for _, _, op, _ in ins)}
         rec["per_permutation"] = _per_permutation(ins)
         kernels[names.get(mangled, mangled)] = rec
-    return {"source": source, "kernels": kernels,
+    return {"source": source, "defines": list(defines), "kernels": kernels,
             "seconds": time.perf_counter() - t0}
 
 
@@ -304,6 +322,8 @@ def main() -> int:
                     help="sources to report on (default every csrc/*.cu)")
     ap.add_argument("--out", default=None,
                     help="directory for the JSON lines and SASS listings")
+    ap.add_argument("--define", action="append", default=[],
+                    metavar="MACRO=VALUE", help="a -D macro for every source")
     args = ap.parse_args()
     out = args.out or tempfile.mkdtemp(prefix="sass_report_")
     os.makedirs(out, exist_ok=True)
@@ -311,7 +331,7 @@ def main() -> int:
     for i, source in enumerate(args.sass or default):
         work = os.path.join(out, str(i))
         os.makedirs(work, exist_ok=True)
-        rec = sass_report(os.path.abspath(source), work)
+        rec = sass_report(os.path.abspath(source), work, args.define)
         line = json.dumps(rec)
         with open(os.path.join(out, "report.jsonl"), "a") as f:
             f.write(line + "\n")
