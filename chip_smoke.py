@@ -83,7 +83,9 @@ Phases, each printed with its elapsed seconds as it ends:
    per launch from launches replayed in a CUDA graph, beside the time per
    call when the wrapper is called back to back from Python; the whole
    2^21-leaf trees, one-row latencies (B15: one merge, one candidate, and
-   the draw's own permutations in one thread), the composition width.
+   the draw's own permutations, the warp running the draw loop in step and
+   a group of 4 threads computing each further candidate), the composition
+   width.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict. Any failure exits non-zero before that verdict. Without a
@@ -1835,7 +1837,9 @@ def _main(pool) -> int:
     def draw62_entry(coin, k, d, own=False):
         """The draw from the candidates one launch gives it (``own``: from
         one planted rejection, so the kernel computes every further
-        candidate itself, one whole state in one thread); the bound counts
+        candidate itself: for Rp62_248 the warp runs the draw loop in step
+        and a group of 4 threads computes each further candidate); the
+        bound counts
         what these inputs need: the candidates read up to the last accepted
         one, and any computed past the launched ones."""
         dw = DEVICE_HASHERS[coin].digest_words

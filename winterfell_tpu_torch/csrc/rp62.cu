@@ -44,19 +44,19 @@
 //   reads them: below p before a later rate chunk is added in, canonical
 //   before pack and so before the draw's < p test (the
 //   pallas_rescue.py:399-411 trap).
-// - Lanes across threads (GROUP). Each of GROUP neighbouring threads of a
-//   warp holds 12/GROUP lanes: the S-boxes run lane-parallel, the lane loop
-//   innermost in each step of the addition chain, and the MDS fetches the
-//   lanes a thread lacks with __shfl_sync. A lone permutation (the coin's
-//   reseed and candidates, the OOD row's hash, the upper levels of a tree)
-//   then waits on a GROUP-th of the instructions. The threads of a group
-//   read different MDS rows and round constants, which constant memory
-//   would serialise, so each block copies them into shared memory, each
-//   thread's MDS rows rotated to the order in which the shuffles hand it the
-//   lanes. One thread per state (GROUP = 1) reads them from constant memory
-//   (one address per warp: a broadcast), but spills and measured slowest.
-//   PERF.md compares GROUP = 1, 2 and 4 (RP62_GROUP at build time); 4 is
-//   the default, and the draw kernel's rare own permutations take it too.
+// - Lanes across threads. Each of GROUP = 4 neighbouring threads of a warp
+//   holds 3 lanes: the S-boxes run lane-parallel, the lane loop innermost
+//   in each step of the addition chain, and the MDS fetches the lanes a
+//   thread lacks with __shfl_sync. A lone permutation (the coin's reseed
+//   and candidates, the OOD row's hash, the upper levels of a tree) then
+//   waits on a quarter of the instructions. The threads of a group read
+//   different MDS rows and round constants, which constant memory would
+//   serialise, so each block copies them into shared memory, each thread's
+//   MDS rows rotated to the order in which the shuffles hand it the lanes.
+//   PERF.md records the layouts tried: one thread per state, reading the
+//   tables from constant memory, spilled and was slowest; two threads per
+//   state were slower than four at every shape. The draw kernel's rare own
+//   permutations take the same group body.
 // - Whole trees in a few launches (merkle_levels_kernel): a block merges
 //   2^b consecutive nodes of a level into b levels, keeping each level in
 //   shared memory for the next and writing it out, one group of threads per
@@ -73,10 +73,6 @@
 #include "byte_coin.cuh"
 #include "f62.cuh"
 
-#ifndef RP62_GROUP
-#define RP62_GROUP 4
-#endif
-
 namespace {
 
 constexpr int WIDTH = 12;
@@ -84,11 +80,10 @@ constexpr int RATE = 8;
 constexpr int ROUNDS = 7;
 constexpr int MDS_SIZE = WIDTH * WIDTH;
 constexpr int ARK_SIZE = 2 * ROUNDS * WIDTH;  // ARK1 then ARK2, (2, 7, 12)
-constexpr int GROUP = RP62_GROUP;             // threads per permutation
+constexpr int GROUP = 4;                      // threads per permutation
+constexpr int L = WIDTH / GROUP;              // lanes per thread
 constexpr int BLOCK = 128;                    // threads of the row kernels
 constexpr int TREE_THREADS = 512;             // most threads of a tree block
-static_assert(GROUP == 1 || GROUP == 2 || GROUP == 4,
-              "a group of threads is 1, 2 or 4 of a warp");
 
 constexpr uint64_t P = f62::P;
 constexpr uint64_t M62 = (1ull << 62) - 1;
@@ -96,11 +91,10 @@ constexpr uint64_t M62 = (1ull << 62) - 1;
 __constant__ uint64_t c_mds[MDS_SIZE];  // M·R mod p, row-major
 __constant__ uint64_t c_ark[ARK_SIZE];  // ARK·R² mod p, (2, 7, 12)
 
-// Where a thread of a group of G reads the MDS matrix and round constants:
+// Where a thread of a group reads the MDS matrix and round constants:
 // m(j, q) is the entry of the row of its lane j at the q-th lane the
 // shuffles of mds_ark hand it; a(hr, j) is ARK_h[r] (hr = h·7 + r) at its
 // lane j.
-template <int G>
 struct Tables {
   const uint64_t* mds;  // this thread's rows of the rotated copy
   const uint64_t* ark;  // from this thread's first lane
@@ -108,62 +102,44 @@ struct Tables {
   __device__ uint64_t a(int hr, int j) const { return ark[hr * WIDTH + j]; }
 };
 
-template <>
-struct Tables<1> {
-  __device__ uint64_t m(int j, int q) const { return c_mds[j * WIDTH + q]; }
-  __device__ uint64_t a(int hr, int j) const { return c_ark[hr * WIDTH + j]; }
-};
-
-// The block's shared copies for groups of G > 1 (row i of the MDS rotated
-// left by the first lane of the thread that holds lane i), after the
-// block's barrier; thread t of its group reads from its own rows.
-template <int G>
-__device__ __forceinline__ Tables<G> block_tables(uint64_t* mds_s,
-                                                  uint64_t* ark_s, int t) {
-  if constexpr (G == 1) {
-    return Tables<1>{};
-  } else {
-    constexpr int L = WIDTH / G;
-    for (int q = threadIdx.x; q < MDS_SIZE; q += blockDim.x) {
-      const int i = q / WIDTH;
-      mds_s[q] = c_mds[i * WIDTH + ((i / L) * L + q % WIDTH) % WIDTH];
-    }
-    for (int q = threadIdx.x; q < ARK_SIZE; q += blockDim.x) ark_s[q] = c_ark[q];
-    __syncthreads();
-    return Tables<G>{mds_s + t * L * WIDTH, ark_s + t * L};
+// The block's shared copies (row i of the MDS rotated left by the first
+// lane of the thread that holds lane i), after the block's barrier; thread
+// t of its group reads from its own rows.
+__device__ __forceinline__ Tables block_tables(uint64_t* mds_s,
+                                               uint64_t* ark_s, int t) {
+  for (int q = threadIdx.x; q < MDS_SIZE; q += blockDim.x) {
+    const int i = q / WIDTH;
+    mds_s[q] = c_mds[i * WIDTH + ((i / L) * L + q % WIDTH) % WIDTH];
   }
+  for (int q = threadIdx.x; q < ARK_SIZE; q += blockDim.x) ark_s[q] = c_ark[q];
+  __syncthreads();
+  return Tables{mds_s + t * L * WIDTH, ark_s + t * L};
 }
 
 // lane `src` of this thread's group (every thread of the warp calls it)
-template <int G>
 __device__ __forceinline__ uint64_t from_group(uint64_t v, int src) {
-  if constexpr (G == 1) return v;
-  else return __shfl_sync(0xFFFFFFFFu, v, src, G);
+  return __shfl_sync(0xFFFFFFFFu, v, src, GROUP);
 }
 
-template <int L>
 __device__ __forceinline__ void sqr_all(uint64_t (&x)[L]) {
 #pragma unroll
   for (int j = 0; j < L; ++j) x[j] = f62::mont_sqr(x[j]);
 }
 
 // x <- x^(2^k) on every lane, the lanes interleaved inside each step
-template <int L>
 __device__ __forceinline__ void squares(uint64_t (&x)[L], int k) {
 #pragma unroll 1
-  for (int i = 0; i < k; ++i) sqr_all<L>(x);
+  for (int i = 0; i < k; ++i) sqr_all(x);
 }
 
 // x <- x^(2^k)·y on every lane
-template <int L>
 __device__ __forceinline__ void sq_mul(uint64_t (&x)[L], int k,
                                        const uint64_t (&y)[L]) {
-  squares<L>(x, k);
+  squares(x, k);
 #pragma unroll
   for (int j = 0; j < L; ++j) x[j] = f62::mont_mul(x[j], y[j]);
 }
 
-template <int L>
 __device__ __forceinline__ void sbox(uint64_t (&x)[L]) {
 #pragma unroll
   for (int j = 0; j < L; ++j) x[j] = f62::mont_mul(f62::mont_sqr(x[j]), x[j]);
@@ -173,7 +149,6 @@ __device__ __forceinline__ void sbox(uint64_t (&x)[L]) {
 // Q_k = x^((4^k - 1)/3), whose exponent is (01)^k, the chain builds Q_2,
 // Q_4, Q_8 and x^3 and then appends the bits: 62 squares and 11
 // multiplies.
-template <int L>
 __device__ __forceinline__ void inv_sbox(uint64_t (&x)[L]) {
   uint64_t x3[L], q2[L], q8[L], r[L];
 #pragma unroll
@@ -183,40 +158,38 @@ __device__ __forceinline__ void inv_sbox(uint64_t (&x)[L]) {
     q2[j] = f62::mont_mul(f62::mont_sqr(x2), x[j]);  // x^5
     r[j] = q2[j];
   }
-  sq_mul<L>(r, 4, q2);  // Q_4 = x^85
+  sq_mul(r, 4, q2);  // Q_4 = x^85
 #pragma unroll
   for (int j = 0; j < L; ++j) q8[j] = r[j];
-  sq_mul<L>(q8, 8, r);  // Q_8
+  sq_mul(q8, 8, r);  // Q_8
 #pragma unroll
   for (int j = 0; j < L; ++j) r[j] = q8[j];
-  sq_mul<L>(r, 5, x);    // (10)^8 ‖ 0001
-  sq_mul<L>(r, 3, x3);   // ‖ 011
-  sq_mul<L>(r, 16, q8);  // ‖ (01)^8
-  sq_mul<L>(r, 16, q8);  // ‖ (01)^8
-  sq_mul<L>(r, 4, q2);   // ‖ (01)^2
-  sq_mul<L>(r, 2, x);    // ‖ 01
-  sq_mul<L>(r, 1, x);    // ‖ 1
+  sq_mul(r, 5, x);    // (10)^8 ‖ 0001
+  sq_mul(r, 3, x3);   // ‖ 011
+  sq_mul(r, 16, q8);  // ‖ (01)^8
+  sq_mul(r, 16, q8);  // ‖ (01)^8
+  sq_mul(r, 4, q2);   // ‖ (01)^2
+  sq_mul(r, 2, x);    // ‖ 01
+  sq_mul(r, 1, x);    // ‖ 1
 #pragma unroll
   for (int j = 0; j < L; ++j) x[j] = r[j];
 }
 
-// s <- MDS·s + ARK_h[r] (hr = h·7 + r) for the L = 12/G lanes t·L .. t·L +
-// L - 1 that this thread holds. Lanes in below 2^63, out below 2p. With
-// G > 1 every thread of the warp calls it together.
-template <int G>
-__device__ __forceinline__ void mds_ark(uint64_t (&s)[WIDTH / G],
-                                        const Tables<G>& tb, int hr, int t) {
-  constexpr int L = WIDTH / G;
+// s <- MDS·s + ARK_h[r] (hr = h·7 + r) for the L = 3 lanes t·L .. t·L + L - 1
+// that this thread holds. Lanes in below 2^63, out below 2p. Every thread
+// of the warp calls it together.
+__device__ __forceinline__ void mds_ark(uint64_t (&s)[L],
+                                        const Tables& tb, int hr, int t) {
 #pragma unroll
   for (int j = 0; j < L; ++j) s[j] = f62::canon_below(s[j], P);  // < 2^62
   // v[q] = lane (t·L + q) mod 12: this thread's lanes, then the next
   // threads' of the group in turn
   uint64_t v[WIDTH];
 #pragma unroll
-  for (int e = 0; e < G; ++e)
+  for (int e = 0; e < GROUP; ++e)
 #pragma unroll
     for (int f = 0; f < L; ++f)
-      v[e * L + f] = e == 0 ? s[f] : from_group<G>(s[f], (t + e) & (G - 1));
+      v[e * L + f] = e == 0 ? s[f] : from_group(s[f], (t + e) & (GROUP - 1));
 #pragma unroll
   for (int j = 0; j < L; ++j) {
     // ARK·R² + sum of 12 products below p·2^62: below 12·2^124 + p < 2^128
@@ -232,18 +205,16 @@ __device__ __forceinline__ void mds_ark(uint64_t (&s)[WIDTH / G],
 }
 
 // The Rp62_248 permutation of the lanes this thread holds (Montgomery form,
-// lazy: in below 2^63, out below 2p). With G > 1 every thread of the warp
-// calls it together.
-template <int G>
-__device__ __forceinline__ void permute(uint64_t (&s)[WIDTH / G],
-                                        const Tables<G>& tb, int t) {
-  constexpr int L = WIDTH / G;
+// lazy: in below 2^63, out below 2p). Every thread of the warp calls it
+// together.
+__device__ __forceinline__ void permute(uint64_t (&s)[L],
+                                        const Tables& tb, int t) {
 #pragma unroll 1
   for (int r = 0; r < ROUNDS; ++r) {
-    sbox<L>(s);
-    mds_ark<G>(s, tb, r, t);
-    inv_sbox<L>(s);
-    mds_ark<G>(s, tb, ROUNDS + r, t);
+    sbox(s);
+    mds_ark(s, tb, r, t);
+    inv_sbox(s);
+    mds_ark(s, tb, ROUNDS + r, t);
   }
 }
 
@@ -271,14 +242,12 @@ __device__ __forceinline__ void pack(const uint64_t* v, uint32_t* w) {
 
 // The digest of a permuted state (lanes 0..3, canonical) as 8 packed words,
 // in every thread of the group.
-template <int G>
-__device__ __forceinline__ void digest(const uint64_t (&s)[WIDTH / G],
+__device__ __forceinline__ void digest(const uint64_t (&s)[L],
                                        uint32_t (&w)[8]) {
-  constexpr int L = WIDTH / G;
   uint64_t v[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q)
-    v[q] = f62::from_mont(from_group<G>(s[q % L], q / L));
+    v[q] = f62::from_mont(from_group(s[q % L], q / L));
   pack(v, w);
 }
 
@@ -288,11 +257,9 @@ __device__ __forceinline__ void store8(uint32_t* dst, const uint32_t (&w)[8]) {
 }
 
 // merge(left, right): the two digests' elements in lanes 0..8, count 8
-template <int G>
-__device__ __forceinline__ void merge_state(uint64_t (&s)[WIDTH / G],
+__device__ __forceinline__ void merge_state(uint64_t (&s)[L],
                                             const uint32_t* left,
                                             const uint32_t* right, int t) {
-  constexpr int L = WIDTH / G;
 #pragma unroll
   for (int j = 0; j < L; ++j) {
     const int lane = t * L + j;
@@ -305,11 +272,9 @@ __device__ __forceinline__ void merge_state(uint64_t (&s)[WIDTH / G],
 
 // merge_with_int(seed, c) (rp62_248/mod.rs): the seed's elements in lanes
 // 0..4, c mod p in lane 4, c div p in lane 5, count 5 (6 when c >= p)
-template <int G>
-__device__ __forceinline__ void int_state(uint64_t (&s)[WIDTH / G],
+__device__ __forceinline__ void int_state(uint64_t (&s)[L],
                                           const uint32_t* seed, uint64_t c,
                                           int t) {
-  constexpr int L = WIDTH / G;
   const uint64_t hi = c / P;
 #pragma unroll
   for (int j = 0; j < L; ++j) {
@@ -338,9 +303,8 @@ __global__ void __launch_bounds__(BLOCK)
 hash_rows_kernel(const uint64_t* __restrict__ rows, uint32_t* __restrict__ out,
                  int64_t m, int64_t k) {
   __shared__ uint64_t mds_s[MDS_SIZE], ark_s[ARK_SIZE];
-  constexpr int L = WIDTH / GROUP;
   const int t = threadIdx.x % GROUP;
-  const Tables<GROUP> tb = block_tables<GROUP>(mds_s, ark_s, t);
+  const Tables tb = block_tables(mds_s, ark_s, t);
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / GROUP);
   if (first_row_of_warp(row0) >= m) return;
   const int64_t i_raw = row0 + threadIdx.x / GROUP;
@@ -361,10 +325,10 @@ hash_rows_kernel(const uint64_t* __restrict__ rows, uint32_t* __restrict__ out,
                f62::canon_below(f62::to_mont(x), P);
       }
     }
-    permute<GROUP>(s, tb, t);
+    permute(s, tb, t);
   }
   uint32_t w[8];
-  digest<GROUP>(s, w);
+  digest(s, w);
   if (store && t == 0) store8(out + i * 8, w);
 }
 
@@ -377,19 +341,18 @@ merge_rows_kernel(const uint32_t* __restrict__ left,
                   const uint32_t* __restrict__ right,
                   uint32_t* __restrict__ out, int64_t m, int64_t stride) {
   __shared__ uint64_t mds_s[MDS_SIZE], ark_s[ARK_SIZE];
-  constexpr int L = WIDTH / GROUP;
   const int t = threadIdx.x % GROUP;
-  const Tables<GROUP> tb = block_tables<GROUP>(mds_s, ark_s, t);
+  const Tables tb = block_tables(mds_s, ark_s, t);
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / GROUP);
   if (first_row_of_warp(row0) >= m) return;
   const int64_t i_raw = row0 + threadIdx.x / GROUP;
   const bool store = i_raw < m;
   const int64_t i = store ? i_raw : m - 1;
   uint64_t s[L];
-  merge_state<GROUP>(s, left + i * stride, right + i * stride, t);
-  permute<GROUP>(s, tb, t);
+  merge_state(s, left + i * stride, right + i * stride, t);
+  permute(s, tb, t);
   uint32_t w[8];
-  digest<GROUP>(s, w);
+  digest(s, w);
   if (store && t == 0) store8(out + i * 8, w);
 }
 
@@ -405,9 +368,8 @@ merkle_levels_kernel(const uint32_t* __restrict__ in,
                      uint32_t* __restrict__ out, int64_t n_in, int b) {
   __shared__ uint64_t mds_s[MDS_SIZE], ark_s[ARK_SIZE];
   extern __shared__ __align__(16) uint32_t level_s[];
-  constexpr int L = WIDTH / GROUP;
   const int t = threadIdx.x % GROUP;
-  const Tables<GROUP> tb = block_tables<GROUP>(mds_s, ark_s, t);
+  const Tables tb = block_tables(mds_s, ark_s, t);
   const int slots = blockDim.x / GROUP;
   const int slot = threadIdx.x / GROUP;
   const int warp_slot = (threadIdx.x & ~31) / GROUP;  // the warp's first slot
@@ -425,10 +387,10 @@ merkle_levels_kernel(const uint32_t* __restrict__ in,
       const bool store = j0 + slot < merges;
       const int j = store ? j0 + slot : merges - 1;
       uint64_t s[L];
-      merge_state<GROUP>(s, src + j * 16, src + j * 16 + 8, t);
-      permute<GROUP>(s, tb, t);
+      merge_state(s, src + j * 16, src + j * 16 + 8, t);
+      permute(s, tb, t);
       uint32_t w[8];
-      digest<GROUP>(s, w);
+      digest(s, w);
       if (store && t == 0) {
         store8(dst_g + j * 8, w);
         if (l < b) store8(dst + j * 8, w);
@@ -447,19 +409,18 @@ __global__ void __launch_bounds__(BLOCK)
 candidates_kernel(const uint32_t* __restrict__ seed, uint32_t* __restrict__ out,
                   uint64_t counter0, int64_t n) {
   __shared__ uint64_t mds_s[MDS_SIZE], ark_s[ARK_SIZE];
-  constexpr int L = WIDTH / GROUP;
   const int t = threadIdx.x % GROUP;
-  const Tables<GROUP> tb = block_tables<GROUP>(mds_s, ark_s, t);
+  const Tables tb = block_tables(mds_s, ark_s, t);
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * (BLOCK / GROUP);
   if (first_row_of_warp(row0) >= n) return;
   const int64_t i_raw = row0 + threadIdx.x / GROUP;
   const bool store = i_raw < n;
   const int64_t i = store ? i_raw : n - 1;
   uint64_t s[L];
-  int_state<GROUP>(s, seed, counter0 + 1 + static_cast<uint64_t>(i), t);
-  permute<GROUP>(s, tb, t);
+  int_state(s, seed, counter0 + 1 + static_cast<uint64_t>(i), t);
+  permute(s, tb, t);
   uint32_t w[8];
-  digest<GROUP>(s, w);
+  digest(s, w);
   if (store && t == 0) store8(out + i * 8, w);
 }
 
@@ -475,11 +436,11 @@ struct Rp62Coin {
                                    uint32_t (&out)[8]) {
     __shared__ uint64_t mds_s[MDS_SIZE], ark_s[ARK_SIZE];
     const int t = threadIdx.x % GROUP;
-    const Tables<GROUP> tb = block_tables<GROUP>(mds_s, ark_s, t);
-    uint64_t s[WIDTH / GROUP];
-    int_state<GROUP>(s, seed, ctr, t);
-    permute<GROUP>(s, tb, t);
-    digest<GROUP>(s, out);
+    const Tables tb = block_tables(mds_s, ark_s, t);
+    uint64_t s[L];
+    int_state(s, seed, ctr, t);
+    permute(s, tb, t);
+    digest(s, out);
   }
 };
 

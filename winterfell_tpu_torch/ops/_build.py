@@ -3,16 +3,12 @@ with ctypes, and reports what the compiler made of a source.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` (Hopper) into
 ``_build/lib<name>-<hash>.so`` beside the package, keyed by a hash of the
-source, the shared headers (``csrc/*.cuh``) and the flags, at first use
-(``load(name, defines)`` builds a variant with ``-D`` macros, such as
-``RP62_GROUP=1`` for the layouts ``rp62_layouts.py`` compares).
-``build_all()`` starts one ``nvcc`` per source at once and waits for all
-of them. No PyTorch header is included, so a
+source, the shared headers (``csrc/*.cuh``) and the flags, at first use. ``build_all()`` starts one ``nvcc`` per
+source at once and waits for all of them. No PyTorch header is included, so a
 build takes seconds. The C entry points take raw device pointers, sizes and
 a stream, and return ``cudaGetLastError()`` of their launch.
 
     python -m winterfell_tpu_torch.ops._build --sass [FILE ...] [--out DIR]
-        [--define MACRO=VALUE ...]
 
 prints, per source (every ``csrc/*.cu`` by default), one JSON line read from
 the source built as ``load`` builds it, to a cubin, with ``-Xptxas -v`` (and
@@ -61,7 +57,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("rescue", "goldilocks", "blake3", "keccak", "jive", "f128", "f62",
            "rp62")
 
-_libs: Dict[tuple, ctypes.CDLL] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def _tool(name: str) -> str:
@@ -71,14 +67,10 @@ def _tool(name: str) -> str:
     return path
 
 
-def _flags(defines=()) -> List[str]:
-    return NVCC_FLAGS + [f"-D{d}" for d in defines]
-
-
-def _target(name: str, defines=()) -> str:
+def _target(name: str) -> str:
     """The library's path, named by a hash of the source, every header of
     csrc/ and the flags."""
-    key = hashlib.sha256(" ".join(_flags(defines)).encode())
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [os.path.join(CSRC, f"{name}.cu")] + sorted(
             os.path.join(CSRC, f) for f in os.listdir(CSRC)
             if f.endswith(".cuh")):
@@ -87,15 +79,15 @@ def _target(name: str, defines=()) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{key.hexdigest()[:16]}.so")
 
 
-def _start(name: str, defines=()):
+def _start(name: str):
     """Starts nvcc for ``name`` unless its library exists; returns
     (process or None, temp path, target path)."""
-    target = _target(name, defines)
+    target = _target(name)
     if os.path.exists(target):
         return None, None, target
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
-    cmd = [_tool("nvcc"), *_flags(defines), "-o", tmp,
+    cmd = [_tool("nvcc"), *NVCC_FLAGS, "-o", tmp,
            os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -118,15 +110,13 @@ def build_all(names: List[str] = SOURCES) -> None:
         _finish(name, proc, tmp, target)
 
 
-def load(name: str, defines=()) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built with ``-D`` for each
-    of ``defines``), built first if needed."""
-    key = (name,) + tuple(defines)
-    lib = _libs.get(key)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
     if lib is None:
-        proc, tmp, target = _start(name, defines)
+        proc, tmp, target = _start(name)
         _finish(name, proc, tmp, target)
-        lib = _libs[key] = ctypes.CDLL(target)
+        lib = _libs[name] = ctypes.CDLL(target)
     return lib
 
 
@@ -285,19 +275,19 @@ def _ptxas_info(text: str) -> dict:
     return info
 
 
-def _arch_flags(defines=()):
-    flags = _flags(defines)
+def _arch_flags():
+    flags = list(NVCC_FLAGS)
     for f in ("-shared", "-Xcompiler", "-fPIC"):
         flags.remove(f)
     return flags
 
 
-def sass_report(source: str, work: str, defines=()) -> dict:
+def sass_report(source: str, work: str) -> dict:
     t0 = time.perf_counter()
     base = os.path.splitext(os.path.basename(source))[0]
     cubin = os.path.join(work, f"{base}.cubin")
-    text = _run([_tool("nvcc"), *_arch_flags(defines), "-cubin", "-Xptxas",
-                 "-v", "-o", cubin, source])
+    text = _run([_tool("nvcc"), *_arch_flags(), "-cubin", "-Xptxas", "-v",
+                 "-o", cubin, source])
     with open(os.path.join(work, f"{base}.ptxas.txt"), "w") as f:
         f.write(text)
     info = _ptxas_info(text)
@@ -312,7 +302,7 @@ def sass_report(source: str, work: str, defines=()) -> dict:
                          "classes": _classify(op for _, _, op, _ in ins)}
         rec["per_permutation"] = _per_permutation(ins)
         kernels[names.get(mangled, mangled)] = rec
-    return {"source": source, "defines": list(defines), "kernels": kernels,
+    return {"source": source, "kernels": kernels,
             "seconds": time.perf_counter() - t0}
 
 
@@ -322,8 +312,6 @@ def main() -> int:
                     help="sources to report on (default every csrc/*.cu)")
     ap.add_argument("--out", default=None,
                     help="directory for the JSON lines and SASS listings")
-    ap.add_argument("--define", action="append", default=[],
-                    metavar="MACRO=VALUE", help="a -D macro for every source")
     args = ap.parse_args()
     out = args.out or tempfile.mkdtemp(prefix="sass_report_")
     os.makedirs(out, exist_ok=True)
@@ -331,7 +319,7 @@ def main() -> int:
     for i, source in enumerate(args.sass or default):
         work = os.path.join(out, str(i))
         os.makedirs(work, exist_ok=True)
-        rec = sass_report(os.path.abspath(source), work, args.define)
+        rec = sass_report(os.path.abspath(source), work)
         line = json.dumps(rec)
         with open(os.path.join(out, "report.jsonl"), "a") as f:
             f.write(line + "\n")

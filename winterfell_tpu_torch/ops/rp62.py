@@ -208,26 +208,22 @@ def _kernels():
     if _lib is None:
         from . import _build
 
-        _lib = bind(_build.load("rp62"))
+        lib = _build.load("rp62")
+        vp, i64, u64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
+                             ctypes.c_int)
+        lib.wt_rp62_init.argtypes = [vp]
+        lib.wt_rp62_hash_rows.argtypes = [vp, vp, i64, i64, vp]
+        lib.wt_rp62_merge_rows.argtypes = [vp, vp, vp, i64, i64, vp]
+        lib.wt_rp62_merkle_levels.argtypes = [vp, vp, i32, i32, vp]
+        lib.wt_rp62_coin_candidates.argtypes = [vp, vp, u64, i64, vp]
+        lib.wt_rp62_coin_draw_f62.argtypes = [vp, vp, vp, vp, u64, i64, i64,
+                                              i32, i32, vp]
+        for fn in (lib.wt_rp62_init, lib.wt_rp62_hash_rows,
+                   lib.wt_rp62_merge_rows, lib.wt_rp62_merkle_levels,
+                   lib.wt_rp62_coin_candidates, lib.wt_rp62_coin_draw_f62):
+            fn.restype = ctypes.c_int
+        _lib = lib
     return _lib
-
-
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Sets the argument and result types of a build of ``csrc/rp62.cu``."""
-    vp, i64, u64, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint64,
-                         ctypes.c_int)
-    lib.wt_rp62_init.argtypes = [vp]
-    lib.wt_rp62_hash_rows.argtypes = [vp, vp, i64, i64, vp]
-    lib.wt_rp62_merge_rows.argtypes = [vp, vp, vp, i64, i64, vp]
-    lib.wt_rp62_merkle_levels.argtypes = [vp, vp, i32, i32, vp]
-    lib.wt_rp62_coin_candidates.argtypes = [vp, vp, u64, i64, vp]
-    lib.wt_rp62_coin_draw_f62.argtypes = [vp, vp, vp, vp, u64, i64, i64,
-                                          i32, i32, vp]
-    for fn in (lib.wt_rp62_init, lib.wt_rp62_hash_rows,
-               lib.wt_rp62_merge_rows, lib.wt_rp62_merkle_levels,
-               lib.wt_rp62_coin_candidates, lib.wt_rp62_coin_draw_f62):
-        fn.restype = ctypes.c_int
-    return lib
 
 
 def prepare(device) -> ctypes.CDLL:
