@@ -13,7 +13,16 @@ Phases, each printed with its elapsed seconds as it ends:
    2^1, each side of the one-block tail, 2^21), K3 field multiply
    (contiguous, broadcast, strided, Python-int operands, and split into
    several launches above a lowered INDEX_LIMIT), the Rp64 coin's
-   permute_rows and draw kernels; B10 BLAKE3 (8 and 6 digest words), B11
+   permute_rows and draw kernels; the f64 engine's B0 add and subtract
+   and B0x quadratic and cubic products at (2^21,), (2^21, 3) and (2^20, 2)
+   over random u64 patterns with every pair of the corner set (against the
+   reference's add and subtract formulas on Python ints too), at the
+   prover's operand layouts (a Python int, columns, butterfly halves, the
+   sum tree's halves, z and α expanded, pows2 expanded over the columns,
+   strided components) and split above a lowered INDEX_LIMIT, B4 (whole
+   NTTs of its stages, the first reading bit-reversed) at 2 ... 2^21 rows,
+   B5 (the FRI fold) at N = 2, 4, 8, 16 and d = 1, 2, 3 (the main path's
+   first fold at 2^21 rows); B10 BLAKE3 (8 and 6 digest words), B11
    SHA3 and B12 Jive row hashes at 1 ... 40 elements a row, merges and trees
    of 1 ... 2^21 leaves; the byte coins' draw kernels with rejected
    candidates planted; the Rescue kernels on random values and on corner
@@ -59,7 +68,8 @@ Phases, each printed with its elapsed seconds as it ends:
    the run), three proves timed with the phase barriers off (as bench.py
    times; the first one's launches counted), one with them on for the
    per-phase split; all equal and verified. Each path's kernels must have
-   launched, and K2 at most 30 times per Rp64 prove. Then one 2^18 prove,
+   launched (its hasher's, and the f64 engine's B0, B0x, B4 and B5), and
+   K2 at most 30 times per Rp64 prove. Then one 2^18 prove,
    verified, with the CLI's default options (Blake3_256, grinding 16, no
    extension) and one each with Blake3_192, Sha3_256 and RpJive64_256.
    Then the two f128 paths at trace 2^18, each timed as above with its
@@ -85,7 +95,8 @@ Phases, each printed with its elapsed seconds as it ends:
    2^21-leaf trees, one-row latencies (B15: one merge, one candidate, and
    the draw's own permutations, the warp running the draw loop in step and
    a group of 4 threads computing each further candidate), the composition
-   width.
+   width; B0, B0x, B4 and B5 at the f64 main path's shapes, each launch on
+   the next of rotating copies of its inputs.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict. Any failure exits non-zero before that verdict. Without a
@@ -94,6 +105,7 @@ CUDA card the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import multiprocessing
@@ -264,6 +276,20 @@ def _ntt_plain(x, n: int, inverse: bool, eng=None):
         y = eng.ntt_stage_plain(y, tw, half)
         half *= 2
     return y.reshape(x.shape)
+
+
+def _gl_formula(name: str, x: int, y: int) -> int:
+    """The reference's gl_add / gl_sub (winterfell_tpu/ops/goldilocks.py
+    :81, :88) on u64 Python ints: a wrapped sum plus 2^32 − 1, then one
+    subtract of p; a borrow minus 2^32 − 1."""
+    p, m, eps = 2**64 - 2**32 + 1, 2**64, 2**32 - 1
+    if name == "gl_add":
+        s = (x + y) % m
+        if s < x:
+            s = (s + eps) % m
+        return s - p if s >= p else s
+    d = (x - y) % m
+    return (d - eps) % m if x < y else d
 
 
 def _max_abs_err(a, b) -> float:
@@ -462,6 +488,42 @@ def _bound_stage62(n: int, cols: int, half: int):
     """One B14n stage: n/2·cols butterflies of one product each; every
     element read and written once, the stage's half twiddles read once."""
     return _bound(n // 2 * cols * IMAD_PER_F62_MUL, (2 * n * cols + half) * 8)
+
+
+def _own(t) -> int:
+    """The elements a tensor view holds (a broadcast dim counted once)."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        n *= size if stride else 1
+    return n
+
+
+# the base products of one extension product (ops/goldilocks.py ext_mul):
+# quadratic 4, cubic 9
+EXT_PRODUCTS = {1: 1, 2: 4, 3: 9}
+
+
+def _bound_ext(x, y):
+    """B0x on x·y of (..., d) operands: each operand's own elements read
+    once and each result written once, 8 bytes each; d = 2: 4 products,
+    d = 3: 9, each 8 IMADs."""
+    d = x.shape[-1]
+    lead = torch.broadcast_shapes(x.shape[:-1], y.shape[:-1]).numel()
+    return _bound(lead * EXT_PRODUCTS[d] * IMAD_PER_MUL,
+                  (_own(x) + _own(y) + lead * d) * 8)
+
+
+def _bound_fold(n: int, n_fold: int, d: int):
+    """B5 on (n, d) evaluations: the evaluations and the (N, rows) offset
+    powers read once, the (rows, d) fold written once, 8 bytes each; per
+    row the N-point iNTT (N/2·log2 N products per component), the 1/N and
+    offset scaling (2N per component) and N − 1 Horner steps (an extension
+    product each), 8 IMADs a product."""
+    rows = n // n_fold
+    products = (d * (n_fold // 2 * (n_fold.bit_length() - 1) + 2 * n_fold)
+                + (n_fold - 1) * EXT_PRODUCTS[d])
+    return _bound(rows * products * IMAD_PER_MUL,
+                  (n * d + n_fold * rows + rows * d) * 8)
 
 
 def _bound_rp62(perms: int, nbytes: int):
@@ -944,6 +1006,101 @@ def _main(pool) -> int:
                              "the lowered INDEX_LIMIT")
     log(f"K3 above INDEX_LIMIT: {splits} launches equal the plain product")
 
+    # B0 (add, subtract), B0x (quadratic and cubic products), B4 (NTT
+    # stages) and B5 (the FRI fold) of the f64 engine. B0 at (LDE,) over
+    # the same u64 patterns as K3 (every ordered pair of its corner set
+    # first); B0x at (LDE, 3) and (LDE / 2, 2) over random u64 patterns with
+    # the corner pairs in every component; then the layouts the prover
+    # passes, splits above a lowered INDEX_LIMIT, whole NTTs and folds
+    b0 = {name: ((getattr(gl, name) if REHEARSAL else
+                  functools.partial(field_kernels.op_kernel, name)),
+                 getattr(field_kernels, f"{name}_plain"))
+          for name in ("gl_add", "gl_sub")}
+    ext_k = gl.ext_mul if REHEARSAL else field_kernels.ext_mul_kernel
+    fold_k = gl.fri_fold if REHEARSAL else gl.fri_fold_kernel
+    for name, (op, plain) in b0.items():
+        got = op(a, b)
+        check(name, got, plain(a, b), (big,))
+        head = got[: len(pairs)].cpu().numpy().view(np.uint64)
+        want = [_gl_formula(name, x, y) for x, y in pairs]
+        if [int(v) for v in head] != want:
+            raise AssertionError(f"{name}: corner results differ from the "
+                                 "reference's formula on Python ints")
+    ext3 = torch.stack([a, b.roll(7), a.roll(13)], dim=-1)
+    ext3b = torch.stack([b, a.roll(5), b.roll(11)], dim=-1)
+    for d, x, y in ((3, ext3, ext3b),
+                    (2, ext3[: big // 2, :2], ext3b[: big // 2, 1:])):
+        check("gl_ext_mul", ext_k(x, y), field_kernels.ext_mul_plain(x, y),
+              (tuple(x.shape), d))
+    # the prover's layouts: B0 with a Python int, a column broadcast, the
+    # butterfly halves, the sum tree's halves, DEEP's x − z with z expanded
+    # over the domain (_deep_combine); B0x with α expanded over a layer,
+    # pows2 expanded over the columns (_eval_cols_pair), a coefficient
+    # expanded over an aux column, and strided operands
+    zs = _rng_field(rng, (1, 3), dev)
+    lay_b0 = layouts + [("sum0", ext[: big // 2], ext[big // 2:]),
+                        ("z expanded", ext, zs.expand_as(ext)),
+                        ("neg", torch.zeros((), dtype=torch.int64,
+                                            device=dev), ext)]
+    for lname, x, y in lay_b0:
+        for name, (op, plain) in b0.items():
+            check(name, op(x, y), plain(x, y), (lname, tuple(x.shape)))
+    polys = _rng_field(rng, (big // 8, 2, 3), dev)
+    pows2 = _rng_field(rng, (big // 8, 2, 3), dev)
+    lay_ext = [("alpha expanded", ext, zs[0].reshape(1, 3).expand_as(ext)),
+               ("pows2", polys[:, :, None],
+                pows2[:, None].expand(polys.shape[:2] + pows2.shape[1:])),
+               ("coefficient", ext, zs),
+               ("strided", ext3[::2], ext3b[1::2]),
+               ("components", torch.stack([ext[:, 2], ext[:, 0]], -1),
+                ext3b[:, 1:])]
+    for lname, x, y in lay_ext:
+        check("gl_ext_mul", ext_k(x, y), field_kernels.ext_mul_plain(x, y),
+              (lname, tuple(x.shape)))
+    field_kernels.INDEX_LIMIT = 1 << 16
+    try:
+        before = dict(field_kernels.LAUNCHES)
+        got_add = b0["gl_add"][0](ext, ext[:, :1])
+        got_ext = ext_k(polys[:, :, None],
+                        pows2[:, None].expand(polys.shape[:2]
+                                              + pows2.shape[1:]))
+        split = {k: field_kernels.LAUNCHES[k] - before[k]
+                 for k in ("gl_add", "gl_ext_mul")}
+    finally:
+        field_kernels.INDEX_LIMIT = limit
+    check("gl_add", got_add, field_kernels.gl_add_plain(ext, ext[:, :1]),
+          ("split", split["gl_add"]))
+    check("gl_ext_mul", got_ext, field_kernels.ext_mul_plain(
+        polys[:, :, None], pows2[:, None].expand(polys.shape[:2]
+                                                 + pows2.shape[1:])),
+          ("split", split["gl_ext_mul"]))
+    if not REHEARSAL and min(split.values()) < 2:
+        raise AssertionError(f"B0 / B0x: {split} launches for results "
+                             "above the lowered INDEX_LIMIT")
+    log(f"B0 gl_add, gl_sub and B0x gl_ext_mul equal their plain versions "
+        f"(and the reference's formula on {len(pairs)} corner pairs; "
+        f"{split} launches above INDEX_LIMIT)")
+    # B4: whole NTTs (the first stage reading bit-reversed, then the
+    # stages in place) against the plain gather and stages, both ways
+    for n_, cols in ((2, 1), (8, 3), (1024, 4), (1 << 16, 2), (big // 2, 3),
+                     (big, 2)):
+        x = _rng_field(rng, (n_, cols), dev)
+        for inverse in (False, True):
+            check("gl_ntt_stage", gl._ntt_core(x, n_, inverse),
+                  _ntt_plain(x, n_, inverse, gl), (n_, cols, inverse))
+    # B5: every folding factor and degree, and the main path's first fold
+    # (the DEEP evaluations of the 2^21-row LDE, by 8, cubic)
+    for n_fold in (2, 4, 8, 16):
+        for d in (1, 2, 3):
+            rows_ = big if (n_fold, d) == (8, 3) else 1 << 16
+            x = _rng_field(rng, (rows_, d), dev)
+            al = _rng_field(rng, (d,), dev)
+            check("gl_fri_fold", fold_k(x, n_fold, F64.generator, al),
+                  gl.fri_fold_plain(x, n_fold, F64.generator, al),
+                  (rows_, n_fold, d))
+    log("B4 gl_ntt_stage (2 ... 2^%d rows) and B5 gl_fri_fold (N 2 ... 16, "
+        "d 1 ... 3) equal their plain versions" % (big.bit_length() - 1))
+
     # B13: the f128 add, subtract and multiply at (LDE,) over random values,
     # the first rows every ordered pair of the corner set; then the operand
     # layouts the f128 prover passes
@@ -1307,9 +1464,16 @@ def _main(pool) -> int:
             f"{1000 * spans['determine_query_positions']:.1f} ms, nonce "
             f"{proof.pow_nonce}; launches {used}; verified")
 
-    def must_launch(key) -> None:
-        """Every kernel of the hasher's record was launched by that prove."""
-        for name in DEVICE_HASHERS[key[0]].launches:
+    # the f64 engine's kernels: B0, B4, B5, and B0x with an extension
+    f64_kernels = ("gl_add", "gl_sub", "gl_ntt_stage", "gl_fri_fold",
+                   "gl_ext_mul")
+
+    def must_launch(key, ext: bool = True) -> None:
+        """Every kernel of the hasher's record and of the f64 engine was
+        launched by that prove (B0x only where the proof has an
+        extension)."""
+        for name in tuple(DEVICE_HASHERS[key[0]].launches) + f64_kernels[
+                : None if ext else -1]:
             if not REHEARSAL and runs[key][name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by the "
                                      f"{key} prove")
@@ -1345,7 +1509,7 @@ def _main(pool) -> int:
                        field_extension=FieldExtension.NONE,
                        fri_folding_factor=8, fri_remainder_max_degree=31)
     one_prove(Blake3_256, cli, "cli_default")
-    must_launch(("blake3_256", "cli_default"))
+    must_launch(("blake3_256", "cli_default"), ext=False)
     # the other hashers, one prove each on the route the dispatch gives it
     for hasher, route in ((Blake3_192, "resident"), (Sha3_256, "resident"),
                           (RpJive64_256, "host")):
@@ -1923,6 +2087,78 @@ def _main(pool) -> int:
          (("fib_f62_sha3_256", "resident"), None)),
     ]
 
+    # B0, B0x, B4 and B5 at the main path's shapes (fib 2^18, LDE 2^21,
+    # cubic): the LDE's elements, an extension matrix plus a column; the
+    # DEEP products over the LDE and the OOD products of the composition
+    # columns with pows2 expanded over them; the last and the bit-reversed
+    # first stage of the trace LDE and the last of the composition LDE; the
+    # first and second FRI folds (by 8). Each launch reads the next of
+    # rotating copies of its inputs (HBM, not the L2); B4's bound is
+    # _bound_stage62's, which counts 8-byte elements and 8-IMAD products.
+    def b0_entry(name, x, y, shape):
+        op, plain = b0[name]
+        return entry(shape, _rotating(op, x, y), lambda: plain(x, y),
+                     _bound_f62(x, y, False))
+
+    def ext_entry(x, y, shape):
+        return entry(shape, _rotating(ext_k, x, y),
+                     lambda: field_kernels.ext_mul_plain(x, y),
+                     _bound_ext(x, y))
+
+    def stage64_entry(n_, cols, half):
+        x = _rng_field(rng, (n_, cols), dev)
+        _, tw = gl.ntt_plan(n_, False, dev)
+        if half == 1:  # the first stage, reading bit-reversed
+            return entry((n_, cols, "first, bit-reversed"),
+                         _rotating(gl.ntt_bitrev_stage, x, tw),
+                         lambda: gl.ntt_stage_plain(
+                             x.index_select(0, gl.bitrev_perm(n_, dev)), tw,
+                             1), _bound_stage62(n_, cols, half))
+        return entry((n_, cols, half),
+                     _rotating(lambda x_, tw_: gl.ntt_stage(x_, tw_, half),
+                               x, tw),
+                     lambda: gl.ntt_stage_plain(x, tw, half),
+                     _bound_stage62(n_, cols, half))
+
+    def fold_entry(n_, n_fold, d):
+        ev, al = _rng_field(rng, (n_, d), dev), _rng_field(rng, (d,), dev)
+        off = F64.generator
+        return entry((n_, d, "by", n_fold),
+                     _rotating(lambda e_, a_: fold_k(e_, n_fold, off, a_), ev,
+                               al),
+                     lambda: gl.fri_fold_plain(ev, n_fold, off, al),
+                     _bound_fold(n_, n_fold, d))
+
+    x64, y64 = _rng_field(rng, (big,), dev), _rng_field(rng, (big,), dev)
+    e64, c64 = _rng_field(rng, (big, 3), dev), _rng_field(rng, (big, 1), dev)
+    f64_ = _rng_field(rng, (big, 3), dev)
+    cp = _rng_field(rng, (n, comp_cols, 1, 3), dev)
+    p2 = _rng_field(rng, (n, 1, 2, 3), dev).expand(n, comp_cols, 2, 3)
+    paths64 = (("rp64_256", "resident"), ("rp64_256", "fused"))
+    gl_src = "winterfell_tpu_torch/csrc/goldilocks.cu"
+    jax64 = "jnp program, no Pallas kernel"
+    records64 = [
+        ("gl_add", f"winterfell_tpu/ops/goldilocks.py:81 (gl_add; {jax64})",
+         gl_src, [b0_entry("gl_add", x64, y64, (big,)),
+                  b0_entry("gl_add", e64, c64, (big, 3, "column"))],
+         paths64),
+        ("gl_sub", f"winterfell_tpu/ops/goldilocks.py:88 (gl_sub; {jax64})",
+         gl_src, [b0_entry("gl_sub", x64, y64, (big,))], paths64),
+        ("gl_ext_mul", "winterfell_tpu/ops/goldilocks.py:191 (ext_mul, "
+         f"quadratic and cubic; {jax64})", gl_src,
+         [ext_entry(e64, f64_, (big, 3)),
+          ext_entry(cp, p2, (n, comp_cols, 2, 3, "pows2 expanded"))],
+         paths64),
+        ("gl_ntt_stage", "winterfell_tpu/ops/goldilocks.py:386 (the radix-2 "
+         f"stages of _ntt_small under _ntt_core :340, ntt_lde_body :432; "
+         f"{jax64})", gl_src,
+         [stage64_entry(big, 2, big // 2), stage64_entry(big, 2, 1),
+          stage64_entry(big, 3 * comp_cols, big // 2)], paths64),
+        ("gl_fri_fold", "winterfell_tpu/ops/goldilocks.py:625 "
+         f"(fri_fold_body; {jax64})", gl_src,
+         [fold_entry(big, 8, 3), fold_entry(big // 8, 8, 3)], paths64),
+    ]
+
     def by_path(name):
         """The kernel's launches in one prove of every timed path that
         launched it."""
@@ -1949,8 +2185,8 @@ def _main(pool) -> int:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"], "shapes": shapes})
-    for name, replaces, source, shapes, (key, phased_key) in (records128
-                                                              + records62):
+    for name, replaces, source, shapes, (key, phased_key) in (
+            records64 + records128 + records62):
         main = shapes[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

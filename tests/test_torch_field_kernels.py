@@ -1,8 +1,11 @@
 """K3, the port's elementwise Goldilocks multiply (winterfell_tpu_torch.ops.
 field_kernels), against the TPU kernel it replaces
 (winterfell_tpu/ops/pallas_kernels.py gl_mul_pallas, in interpret mode as
-tests/test_pallas_kernels.py runs it) and the exact Python-int oracle; and the
-routing of ops/goldilocks.py:gl_mul on the CPU."""
+tests/test_pallas_kernels.py runs it) and the exact Python-int oracle; the
+routing of ops/goldilocks.py:gl_mul on the CPU; and what the wrappers of
+K3, B0 (add, subtract), B0x (extension product), B4 (NTT stage) and B5 (FRI
+fold) refuse on the CPU: the layouts and dtypes their kernels cannot read,
+and CPU tensors handed to a kernel entry."""
 
 import random
 
@@ -189,6 +192,75 @@ def test_layouts_the_kernel_cannot_take_raise(monkeypatch):
         assert len(leaves) > 1 and sum(leaves) == out.numel()
         assert torch.equal(out, fk.gl_mul_plain(y, z))
 
+    # B0 and B0x check their operands as K3 does (on every device), B4 its
+    # matrix and twiddles, B5 its evaluations, factor and α; a product
+    # beyond the 32-bit offsets of B0x is split into launches that fit
+    a = torch.zeros((4, 3), dtype=torch.int64)
+    for op in (gl.gl_add, gl.gl_sub):
+        with pytest.raises(TypeError):
+            op(a.to(torch.int32), a)
+        with pytest.raises(TypeError):
+            op(a, 2.0)
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            op(a.to("meta"), 3)
+        deep = torch.zeros((2,) * 9, dtype=torch.int64).permute(
+            *range(8, -1, -1))
+        with pytest.raises(ValueError, match="at most 8"):
+            op(deep, deep)
+    # B0x: operands of one degree, 2 or 3, int64, leading dims that merge
+    # into at most 8
+    for x, y in ((a, a[:, :2]), (a.to(torch.int32), a),
+                 (torch.zeros((4, 4), dtype=torch.int64),) * 2,
+                 (a, torch.zeros((), dtype=torch.int64))):
+        with pytest.raises((TypeError, ValueError)):
+            fk.ext_layout(x, y)
+    deep = torch.zeros((2,) * 9 + (3,), dtype=torch.int64).permute(
+        *range(8, -1, -1), 9)
+    with pytest.raises(ValueError, match="at most 8"):
+        gl.ext_mul(deep, deep)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        gl.ext_mul(a.to("meta"), a.to("meta"))
+    # B4: a power-of-two (n, cols) int64 matrix, a stage inside it, the
+    # (n/2,) twiddle table on its device
+    _, tw = gl.ntt_plan(8, False, "cpu")
+    m = torch.zeros((8, 2), dtype=torch.int64)
+    for x, t, half in ((m, tw, 3), (m, tw, 8), (m[:6], tw, 1),
+                       (m.to(torch.int32), tw, 1), (m[:, 0], tw, 1),
+                       (m, tw[:3], 1), (m, tw.to(torch.int32), 1)):
+        with pytest.raises(ValueError):
+            gl.ntt_stage(x, t, half)
+    with pytest.raises(ValueError):
+        gl.ntt_bitrev_stage(m[:6], tw)
+    # B5: (n, d) int64 evaluations with d <= 3, a factor of 2, 4, 8 or 16
+    # dividing n, α of d elements on their device
+    ev = torch.zeros((32, 3), dtype=torch.int64)
+    for e, nf, al in ((ev, 32, ev[0]), (ev, 3, ev[0]), (ev[:12], 8, ev[0]),
+                      (torch.zeros((32, 4), dtype=torch.int64), 4,
+                       torch.zeros(4, dtype=torch.int64)),
+                      (ev.to(torch.int32), 4, ev[0]), (ev, 4, ev[0, :2]),
+                      (ev, 4, ev[0].to(torch.int32)), (ev[:, 0], 4, ev[0])):
+        with pytest.raises(ValueError):
+            gl.fri_fold(e, nf, 7, al)
+    # B0x above the 32-bit offsets (a lowered limit): the product is split
+    # into launches that each fit, and the parts make the product
+    rng = np.random.default_rng(11)
+    x = _t(rng.integers(0, 2**64, size=(40, 6, 3), dtype=np.uint64))
+    y = _t(rng.integers(0, 2**64, size=(6, 3), dtype=np.uint64))
+    monkeypatch.setattr(fk, "INDEX_LIMIT", 100)
+    assert not fk.ext_layout(x, y).fits
+    assert fk.ext_layout(x[:5], y).fits  # 90 elements
+    leaves.clear()
+
+    def ext_leaf(a, b, out, layout):
+        assert layout.fits and out.is_contiguous()
+        leaves.append(layout.numel)
+        out.copy_(fk.ext_mul_plain(a, b))
+
+    out = torch.empty((40, 6, 3), dtype=torch.int64)
+    fk.mul_into(x, y, out, ext_leaf, None, fk.ext_layout)
+    assert len(leaves) > 1 and sum(leaves) == 240
+    assert torch.equal(out, fk.ext_mul_plain(x, y))
+
 
 def test_kernel_on_cpu_tensors_raises_instead_of_falling_back():
     """A call that asks for the kernel never drops to the plain version:
@@ -196,3 +268,16 @@ def test_kernel_on_cpu_tensors_raises_instead_of_falling_back():
     a = torch.ones((4,), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fk.gl_mul_kernel(a, a)
+    for name in ("gl_add", "gl_sub"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fk.op_kernel(name, a, a)
+    e = torch.ones((8, 3), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fk.ext_mul_kernel(e, e)
+    _, tw = gl.ntt_plan(8, False, "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gl.ntt_stage_kernel(e.clone(), tw, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gl.ntt_stage_kernel(torch.empty_like(e), tw, 1, src=e)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gl.fri_fold_kernel(e, 4, 7, e[0])

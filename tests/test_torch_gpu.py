@@ -171,6 +171,62 @@ def test_gl_mul_kernel_reads_broadcast_strided_and_int_operands(cuda,
     assert torch.equal(got, field_kernels.gl_mul_plain(x, y))
 
 
+def test_f64_engine_kernels_equal_plain(cuda, monkeypatch):
+    """B0 (add, subtract) and B0x (quadratic and cubic products) over random
+    u64 patterns with every pair of the corner set and patterns >= p, at
+    the prover's operand layouts and split above a lowered INDEX_LIMIT; B4
+    (whole NTTs of its stages, the first reading bit-reversed) at 2 ...
+    2^12 rows; B5 (the FRI fold) at N = 2, 4, 8, 16 and D = 1, 2, 3."""
+    corners = CORNERS + [P, P + 1, 2**64 - 2**32, 2**64 - 1]
+    pairs = [(x, y) for x in corners for y in corners]
+    n = 1 << 16
+    a, b = _rand(21, (n,), cuda, 2**64), _rand(22, (n,), cuda, 2**64)
+    for t, vals in ((a, [x for x, _ in pairs]), (b, [y for _, y in pairs])):
+        t[: len(pairs)] = torch.from_numpy(
+            np.array(vals, dtype=np.uint64).view(np.int64)).to(cuda)
+    x = _rand(23, (64, 2, 16, 3), cuda, 2**64)
+    for name in ("gl_add", "gl_sub"):
+        plain = getattr(field_kernels, f"{name}_plain")
+        for u, v in ((a, b), (a, 2**64 - 1), (a, gl.const(3)),
+                     (x[:, 1], x[:, 0]), (x, x[0, :1, :, :1]),
+                     (x[..., 2], x[..., 0])):
+            assert torch.equal(field_kernels.op_kernel(name, u, v),
+                               plain(u, v))
+    assert torch.equal(gl.gl_neg(a), field_kernels.gl_sub_plain(
+        torch.zeros((), dtype=torch.int64, device=cuda), a))
+    for d in (2, 3):
+        e = a[: n // d * d].reshape(-1, d)
+        f = b[: n // d * d].reshape(-1, d)
+        polys, pows2 = e[:1024].reshape(128, 8, d), f[:256].reshape(128, 2, d)
+        for u, v in ((e, f), (e, f[5].expand_as(e)),
+                     (polys[:, :, None], pows2[:, None].expand(128, 8, 2, d)),
+                     (e[::2][:1000], f[1::2][:1000]), (e, f[7][None])):
+            assert torch.equal(field_kernels.ext_mul_kernel(u, v),
+                               field_kernels.ext_mul_plain(u, v)), d
+    for logn in range(1, 13):
+        for cols in (1, 3):
+            y = _rand(logn + cols, (1 << logn, cols), cuda)
+            for inverse in (False, True):
+                assert torch.equal(gl._ntt_core(y, 1 << logn, inverse),
+                                   gl.ntt_plain(y, 1 << logn, inverse))
+    for n_fold in (2, 4, 8, 16):
+        for d in (1, 2, 3):
+            ev = _rand(n_fold + d, (4096, d), cuda)
+            alpha = _rand(d, (d,), cuda)
+            assert torch.equal(gl.fri_fold_kernel(ev, n_fold, 7, alpha),
+                               gl.fri_fold_plain(ev, n_fold, 7, alpha))
+    monkeypatch.setattr(field_kernels, "INDEX_LIMIT", 1000)
+    field_kernels.reset_launches()
+    e3 = a[:3000].reshape(1000, 3)
+    for fn in (lambda: field_kernels.op_kernel("gl_add", a[:3000], b[:3000]),
+               lambda: field_kernels.ext_mul_kernel(e3, e3.flip(0))):
+        before = sum(field_kernels.LAUNCHES.values())
+        fn()
+        assert sum(field_kernels.LAUNCHES.values()) - before > 1
+    assert torch.equal(field_kernels.ext_mul_kernel(e3, e3.flip(0)),
+                       field_kernels.ext_mul_plain(e3, e3.flip(0)))
+
+
 def test_permute_rows_kernel_equals_plain(cuda):
     for m in (1, 7, 1000):
         states = _rand(m + 5, (m, 12), cuda)
@@ -275,7 +331,8 @@ def test_card_proof_equals_cpu_proof_and_launches_kernels(cuda):
     assert card.to_bytes() == cpu.to_bytes()
     # a trace this small has no FRI layer (host coin): no one-row reseed
     assert launches["rp64_hash_rows"] > 0 and launches["rp64_merkle_tree"] > 0
-    assert launches["gl_mul"] > 0
+    for name in ("gl_mul", "gl_add", "gl_sub", "gl_ext_mul", "gl_ntt_stage"):
+        assert launches[name] > 0, name
 
 
 def test_f62_kernels_equal_plain(cuda):

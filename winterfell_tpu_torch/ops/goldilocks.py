@@ -16,16 +16,22 @@ with 2^64 ≡ 2^32 − 1 and 2^96 ≡ −1 (mod p), as the JAX engine does
 so results are bit-identical to the exact host oracle in ``math/`` whatever
 the device.
 
-These functions are plain tensor code that runs wherever its inputs lie,
-except for three that dispatch on the device: ``gl_mul`` (every field
-multiply) to the kernel of ``ops/field_kernels.py``, and the Rescue row hash
-and 2-to-1 merge (per level and over Merkle trees) to those of
-``ops/rescue.py`` — the hand-written CUDA kernel for a CUDA tensor, its plain
-torch version for a CPU tensor.
+Every field op, NTT stage and FRI fold goes through entry points that
+dispatch on the device: ``gl_add``, ``gl_sub``, ``gl_mul`` (``gl_neg`` is one
+subtract) and ``ext_mul`` to K3, B0 and B0x (``ops/field_kernels.py``);
+``ntt_stage`` and ``ntt_bitrev_stage`` (under ``_ntt_core``) to B4 and
+``fri_fold`` to B5, whose wrappers are below; the Rescue row hash and 2-to-1
+merge (per level and over Merkle trees) to those of ``ops/rescue.py``. A CUDA
+tensor goes to the hand-written kernel of ``csrc/`` (on the current stream,
+without synchronising, one added to its count in
+``field_kernels.LAUNCHES``), a CPU tensor to its plain version. Everything
+else here (powers, inversion, plans, coset LDE) is torch code over those
+entry points.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import lru_cache
 from typing import Dict, List
 
@@ -103,19 +109,22 @@ def _cached(key, build):
 
 
 def gl_add(a, b):
-    """(a + b) mod p: on u64 overflow add 2^32 − 1, then canonicalize."""
-    s = _add(a, b)
-    s = _where(_ult(s, a), _add(s, _T_EPS), s)
-    return _canon(s)
+    """(a + b) mod p: on u64 overflow add 2^32 − 1, then canonicalize (B0,
+    or its plain version on the CPU)."""
+    return field_kernels.op("gl_add", a, b)
 
 
 def gl_sub(a, b):
-    d = _sub(a, b)
-    return _where(_ult(a, b), _sub(d, _T_EPS), d)
+    """a − b: on a borrow subtract 2^32 − 1 (B0, or its plain version)."""
+    return field_kernels.op("gl_sub", a, b)
 
 
 def gl_neg(a):
-    return torch.where(a == 0, a, _P_S - a)
+    """−a as 0 − a: one subtract, equal to the reference's gl_neg
+    (0 if a = 0, else p − a) for every u64 pattern."""
+    zero = _cached(("zero", str(a.device)),
+                   lambda: torch.zeros((), dtype=I64, device=a.device))
+    return gl_sub(zero, a)
 
 
 def _mul_128(a, b):
@@ -166,10 +175,7 @@ def gl_mul(a, b):
     """a·b mod p (``b`` a tensor that broadcasts against ``a``, or a Python
     int). The layout is checked on every device; then a CUDA tensor goes to
     the K3 kernel and a CPU tensor to its plain version."""
-    layout = field_kernels.mul_layout(a, b)
-    if a.device.type == "cpu":
-        return field_kernels.gl_mul_plain(a, b)
-    return field_kernels.gl_mul_kernel(a, b, layout)
+    return field_kernels.op("gl_mul", a, b)
 
 
 def gl_mul_small(a, c):
@@ -222,26 +228,11 @@ def ext_sub(a, b):
 
 
 def ext_mul(a, b):
-    d = a.shape[-1]
-    if d == 1:
+    """a·b of (..., d) extension elements: K3 for d = 1, B0x (or its plain
+    version on the CPU) for the quadratic and cubic extensions."""
+    if a.shape[-1] == 1:
         return gl_mul(a, b)
-    if d == 2:
-        a0, a1 = a[..., 0], a[..., 1]
-        b0, b1 = b[..., 0], b[..., 1]
-        t2 = gl_mul(a1, b1)
-        c0 = gl_sub(gl_mul(a0, b0), gl_add(t2, t2))
-        c1 = gl_add(gl_add(gl_mul(a0, b1), gl_mul(a1, b0)), t2)
-        return torch.stack([c0, c1], dim=-1)
-    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    t0 = gl_mul(a0, b0)
-    t1 = gl_add(gl_mul(a0, b1), gl_mul(a1, b0))
-    t2 = gl_add(gl_add(gl_mul(a0, b2), gl_mul(a1, b1)), gl_mul(a2, b0))
-    t3 = gl_add(gl_mul(a1, b2), gl_mul(a2, b1))
-    t4 = gl_mul(a2, b2)
-    # x³ = x + 1; x⁴ = x² + x
-    return torch.stack(
-        [gl_add(t0, t3), gl_add(t1, gl_add(t3, t4)), gl_add(t2, t4)], dim=-1)
+    return field_kernels.ext_mul(a, b)
 
 
 def ext_mul_base(a, s):
@@ -396,37 +387,137 @@ def _root(n: int, inverse: bool) -> int:
     return pow(r, P - 2, P) if inverse else r
 
 
+def bitrev_perm(n: int, device) -> torch.Tensor:
+    """The bit-reversal permutation of n rows on ``device`` (a host copy,
+    built once per process; the plain path's gather)."""
+    return _cached(("bitrev", n, str(device)),
+                   lambda: torch.from_numpy(_bitrev_perm(n)).to(device))
+
+
 def ntt_plan(n: int, inverse: bool, device):
     """(bit-reversal permutation, n/2 powers of the n-th root) of a size-n
     transform on ``device``, built once per process. Building a plan copies
     the permutation from the host, so the resident prove builds every plan it
     needs before its device run."""
-    perm = _cached(("bitrev", n, str(device)),
-                   lambda: torch.from_numpy(_bitrev_perm(n)).to(device))
     tw_all = _cached(("tw", n, inverse, str(device)),
                      lambda: power_series(_root(n, inverse), n // 2, device))
-    return perm, tw_all
+    return bitrev_perm(n, device), tw_all
+
+
+def ntt_stage_plain(x, tw_all, half: int):
+    """One radix-2 stage of ``ntt_stage`` in plain PyTorch (a new tensor)."""
+    n, cols = x.shape
+    mm = 2 * half
+    tw = tw_all[:: n // mm].reshape(1, half, 1)
+    blk = x.reshape(n // mm, 2, half, cols)
+    u = blk[:, 0]
+    v = field_kernels.gl_mul_plain(blk[:, 1], tw)
+    return torch.cat([field_kernels.gl_add_plain(u, v),
+                      field_kernels.gl_sub_plain(u, v)], dim=1).reshape(
+                          n, cols)
+
+
+def _check_stage(x, tw_all, half: int) -> None:
+    if not isinstance(x, torch.Tensor) or x.dtype != I64 or x.dim() != 2:
+        raise ValueError("ntt_stage: expected an (n, cols) int64 tensor, got "
+                         f"{getattr(x, 'dtype', type(x).__name__)} "
+                         f"{tuple(getattr(x, 'shape', ()))}")
+    n, cols = x.shape
+    if n < 2 or n & (n - 1) or half < 1 or half & (half - 1) or 2 * half > n:
+        raise ValueError(f"ntt_stage: bad stage {half} of a size-{n} NTT")
+    if tuple(tw_all.shape) != (n // 2,) or not tw_all.is_contiguous() or \
+            tw_all.device != x.device or tw_all.dtype != I64:
+        raise ValueError("ntt_stage: expected a contiguous (n/2,) twiddle "
+                         "table on the tensor's device")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ntt_stage runs on cpu or cuda, not {x.device}")
+    if n // 2 * cols > field_kernels.INDEX_LIMIT:
+        raise ValueError("ntt_stage: more than 2^31 − 1 butterflies")
+
+
+def ntt_stage_kernel(x, tw_all, half: int, src=None):
+    """B4 on CUDA tensors: the stage of ``half`` over the contiguous x in
+    place, or with ``src`` (x's shape) the first stage (half 1) from src's
+    rows in bit-reversed order into x. Returns x."""
+    _check_stage(x, tw_all, half)
+    field_kernels.require_cuda(x, "gl_ntt_stage")
+    if not x.is_contiguous():
+        raise ValueError("ntt_stage: the kernel works in place on a "
+                         "contiguous matrix")
+    if src is not None:
+        if half != 1 or src.shape != x.shape or src.dtype != I64 or \
+                src.device != x.device:
+            raise ValueError("ntt_stage: a bit-reversed source is read by "
+                             "the first stage, in the shape of its output")
+        src = src.contiguous()
+    n, cols = x.shape
+    lib = field_kernels.kernels()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.wt_gl_ntt_stage(x.data_ptr(),
+                                  None if src is None else src.data_ptr(),
+                                  tw_all.data_ptr(), n, cols,
+                                  half.bit_length() - 1, n // (2 * half),
+                                  stream)
+    field_kernels.raise_on(err, "gl_ntt_stage")
+    field_kernels.LAUNCHES["gl_ntt_stage"] += 1
+    return x
+
+
+def ntt_stage(x, tw_all, half: int):
+    """B4: the stage of butterflies of ``half`` over x (n, cols), a
+    contiguous matrix of rows in bit-reversed order, with the twiddles
+    tw_all[j · n/(2·half)] ((n/2,) powers of the n-th root). In place for a
+    CUDA tensor (returns x); a new tensor from the plain version on the
+    CPU."""
+    if x.device.type == "cpu":
+        _check_stage(x, tw_all, half)
+        return ntt_stage_plain(x, tw_all, half)
+    return ntt_stage_kernel(x, tw_all, half)
+
+
+def ntt_bitrev_stage(x, tw_all):
+    """B4's first stage (half 1) over the rows of x (n, cols) in natural
+    order, read in bit-reversed order: a new contiguous (n, cols) tensor,
+    the input of the later stages. On the CPU the bit-reversal gather, then
+    the plain stage."""
+    if x.device.type == "cpu":
+        _check_stage(x, tw_all, 1)
+        return ntt_stage_plain(x.index_select(0, bitrev_perm(x.shape[0],
+                                                             x.device)),
+                               tw_all, 1)
+    out = torch.empty(x.shape, dtype=I64, device=x.device)
+    return ntt_stage_kernel(out, tw_all, 1, src=x)
 
 
 def _ntt_core(x, n: int, inverse: bool):
-    """x: (n, ...) → NTT/iNTT without the 1/n scale, natural order in/out.
-    Stage m uses the m-th roots w_n^(j·n/m): strided slices of one table of
-    n/2 powers of w_n."""
+    """x: (n, ...) → NTT/iNTT without the 1/n scale, natural order in and
+    out: the first stage reading x bit-reversed, then log2 n − 1 stages in
+    place (B4 on the card). Stage m uses the m-th roots w_n^(j·n/m): strided
+    reads of one table of n/2 powers of w_n."""
+    if n == 1 or x.numel() == 0:
+        return x
+    _, tw_all = ntt_plan(n, inverse, x.device)
+    y = ntt_bitrev_stage(x.reshape(n, -1), tw_all)
+    half = 2
+    while half < n:
+        y = ntt_stage(y, tw_all, half)
+        half *= 2
+    return y.reshape(x.shape)
+
+
+def ntt_plain(x, n: int, inverse: bool):
+    """``_ntt_core`` in plain PyTorch on any device: the bit-reversal
+    gather, then the plain stages."""
     if n == 1:
         return x
-    rest = x.shape[1:]
     perm, tw_all = ntt_plan(n, inverse, x.device)
-    x = x.index_select(0, perm)
+    y = x.index_select(0, perm).reshape(n, -1)
     half = 1
     while half < n:
-        mm = 2 * half
-        tw = tw_all[:: n // mm].reshape((1, half) + (1,) * len(rest))
-        blk = x.reshape((n // mm, 2, half) + rest)
-        u = blk[:, 0]
-        v = gl_mul(blk[:, 1], tw)
-        x = torch.cat([gl_add(u, v), gl_sub(u, v)], dim=1).reshape((n,) + rest)
-        half = mm
-    return x
+        y = ntt_stage_plain(y, tw_all, half)
+        half *= 2
+    return y.reshape(x.shape)
 
 
 def _col(v, ndim: int):
@@ -495,22 +586,86 @@ def fri_inv_offset_powers(n: int, n_fold: int, domain_offset: int, device):
     return _cached(("fri", n, n_fold, domain_offset % P, str(device)), build)
 
 
-def fri_fold(evaluations, n_fold: int, domain_offset: int, alpha):
-    """evaluations (n, d), alpha (d,) → folded (n/N, d): per-row N-point iNTT
-    over the row's coset, inverse-offset scaling, Horner at α."""
+def fri_fold_plain(evaluations, n_fold: int, domain_offset: int, alpha):
+    """``fri_fold`` in plain PyTorch on any device: per row an N-point iNTT
+    over the row's coset, the 1/N and inverse-offset scaling, Horner at α
+    (the JAX fri_fold_body)."""
+    fk = field_kernels
     n, d = evaluations.shape
     rows = n // n_fold
     inv_pows = fri_inv_offset_powers(n, n_fold, domain_offset,
                                      evaluations.device)
-    coeffs = _ntt_core(evaluations.reshape(n_fold, rows, d), n_fold,
+    coeffs = ntt_plain(evaluations.reshape(n_fold, rows, d), n_fold,
                        inverse=True)
-    coeffs = gl_mul(coeffs, const(pow(n_fold, P - 2, P)))
+    coeffs = fk.gl_mul_plain(coeffs, const(pow(n_fold, P - 2, P)))
     result = torch.zeros((rows, d), dtype=I64, device=evaluations.device)
     alpha_b = alpha.reshape(1, d).expand(rows, d)
+    ext = fk.gl_mul_plain if d == 1 else fk.ext_mul_plain
     for k in range(n_fold - 1, -1, -1):
-        result = ext_add(ext_mul(result, alpha_b),
-                         gl_mul(coeffs[k], inv_pows[k][:, None]))
+        result = fk.gl_add_plain(ext(result, alpha_b),
+                                 fk.gl_mul_plain(coeffs[k],
+                                                 inv_pows[k][:, None]))
     return result
+
+
+@lru_cache(maxsize=None)
+def _fold_twiddles(n_fold: int):
+    """The n_fold/2 powers of the inverse n_fold-th root, and 1/n_fold."""
+    r = _root(n_fold, True)
+    return [pow(r, k, P) for k in range(n_fold // 2)], pow(n_fold, P - 2, P)
+
+
+def _check_fold(evaluations, n_fold: int, alpha) -> None:
+    if not isinstance(evaluations, torch.Tensor) or \
+            evaluations.dtype != I64 or evaluations.dim() != 2:
+        raise ValueError("fri_fold: expected (n, d) int64 evaluations")
+    n, d = evaluations.shape
+    if n_fold not in (2, 4, 8, 16) or d not in (1, 2, 3) or n % n_fold or \
+            n == 0:
+        raise ValueError(f"fri_fold: a fold by {n_fold} of {n} rows of "
+                         f"degree {d}")
+    if not isinstance(alpha, torch.Tensor) or alpha.dtype != I64 or \
+            alpha.numel() != d or alpha.device != evaluations.device:
+        raise ValueError("fri_fold: α must be a (d,) int64 tensor on the "
+                         "evaluations' device")
+    if evaluations.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fri_fold runs on cpu or cuda, not "
+                         f"{evaluations.device}")
+    if n // n_fold > field_kernels.INDEX_LIMIT:
+        raise ValueError("fri_fold: more than 2^31 − 1 folded rows")
+
+
+def fri_fold_kernel(evaluations, n_fold: int, domain_offset: int, alpha):
+    """B5 on CUDA tensors: the folded (n/N, d) layer, one thread per row; α
+    is read from device memory (no host copy)."""
+    _check_fold(evaluations, n_fold, alpha)
+    field_kernels.require_cuda(evaluations, "gl_fri_fold")
+    n, d = evaluations.shape
+    rows = n // n_fold
+    inv_pows = fri_inv_offset_powers(n, n_fold, domain_offset,
+                                     evaluations.device)
+    ev, al = evaluations.contiguous(), alpha.contiguous()
+    out = torch.empty((rows, d), dtype=I64, device=ev.device)
+    tw, inv_n = _fold_twiddles(n_fold)
+    lib = field_kernels.kernels()
+    with torch.cuda.device(ev.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.wt_gl_fri_fold(ev.data_ptr(), inv_pows.data_ptr(),
+                                 al.data_ptr(), out.data_ptr(), rows, n_fold,
+                                 d, (ctypes.c_uint64 * len(tw))(*tw), inv_n,
+                                 stream)
+    field_kernels.raise_on(err, "gl_fri_fold")
+    field_kernels.LAUNCHES["gl_fri_fold"] += 1
+    return out
+
+
+def fri_fold(evaluations, n_fold: int, domain_offset: int, alpha):
+    """evaluations (n, d), alpha (d,) → folded (n/N, d): B5 for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if evaluations.device.type == "cpu":
+        _check_fold(evaluations, n_fold, alpha)
+        return fri_fold_plain(evaluations, n_fold, domain_offset, alpha)
+    return fri_fold_kernel(evaluations, n_fold, domain_offset, alpha)
 
 
 # ================================================================================

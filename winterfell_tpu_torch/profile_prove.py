@@ -29,15 +29,28 @@ a row, through its entry point (``f128_mul``: checks, layout, output
 allocation and launch) and as the bare launch with the layout and output
 made once, host microseconds per call. With ``--walls N``, N more proves
 run free (no profiler, phase barriers off) before the profiled one, and
-their walls are printed too. Needs a CUDA card; exits non-zero without one.
+their walls are printed too. With ``--by-site``, one more prove runs under
+``torch.profiler`` with ``with_stack=True`` (its wall is not reported: the
+Python tracer slows the host), and its kernel launches and device time are
+grouped by call site: each kernel is matched to its launch on the host
+(the CUDA runtime call of the same correlation id) and the launch to the
+Python frames open around it in the trace. ``by_site`` groups by the
+innermost ``winterfell_tpu_torch`` frame (file, first line of the function
+and its name: ``ops/goldilocks.py(…): gl_batch_inv`` for a torch chain's
+launches there, a kernel wrapper for a hand kernel's), ``by_caller`` by the
+innermost frame outside ``ops/`` and ``utils/`` (the prover's or AIR's code
+that called the engine). Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import tempfile
 import time
+from collections import defaultdict
 
 import torch
 
@@ -55,6 +68,92 @@ def _busy_us(intervals) -> float:
     if cur_e is not None:
         total += cur_e - cur_s
     return total
+
+
+_PKG = "winterfell_tpu_torch/"
+
+
+def _site(name: str) -> str:
+    """A Python frame's trace name ('…/winterfell_tpu_torch/ops/x.py(12):
+    fn') from the package on."""
+    return name[name.index(_PKG) + len(_PKG):]
+
+
+def _attribute(frames, launches):
+    """For each launch (tid, ts, kernel name, device µs), the innermost
+    package frame open around it on its thread and the innermost one
+    outside ops/ and utils/; frames are (tid, start, end, name) of the
+    package's Python functions. Returns {"by_site": ..., "by_caller": ...}:
+    per group its launches, device ms and launches per kernel name, the
+    groups with the most device time first."""
+    events = sorted([(tid, ts, 0, end, name) for tid, ts, end, name in frames]
+                    + [(tid, ts, 1, dur, name) for tid, ts, name, dur
+                       in launches], key=lambda e: (e[0], e[1], e[2], -e[3]))
+    groups = {"by_site": defaultdict(lambda: [0, 0.0, defaultdict(int)]),
+              "by_caller": defaultdict(lambda: [0, 0.0, defaultdict(int)])}
+    stack, tid_now = [], None
+    for tid, ts, kind, val, name in events:
+        if tid != tid_now:
+            stack, tid_now = [], tid
+        while stack and stack[-1][0] <= ts:
+            stack.pop()
+        if kind == 0:
+            stack.append((val, name))
+            continue
+        site = stack[-1][1] if stack else "(no package frame)"
+        caller = next((f for _, f in reversed(stack)
+                       if not f.startswith(("ops/", "utils/"))),
+                      "(no frame outside ops/, utils/)")
+        for key, view in ((site, "by_site"), (caller, "by_caller")):
+            rec = groups[view][key]
+            rec[0] += 1
+            rec[1] += val / 1000
+            rec[2][name[:60]] += 1
+    return {view: sorted(({"site": k, "launches": c, "ms": ms,
+                           "kernels": dict(sorted(kn.items(),
+                                                  key=lambda kv: -kv[1]))}
+                          for k, (c, ms, kn) in g.items()),
+                         key=lambda r: -r["ms"])
+            for view, g in groups.items()}
+
+
+def _by_site(prover, trace, top: int) -> dict:
+    """One prove under the profiler with Python stacks; its kernels grouped
+    by call site (``_attribute``), the ``top`` groups of each view."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 with_stack=True) as prof:
+        prover.prove(trace)
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    frames, runtime, kernels = [], {}, []
+    for e in events:
+        cat = e.get("cat")
+        if cat == "python_function" and _PKG in e.get("name", ""):
+            frames.append((e["tid"], e["ts"], e["ts"] + e["dur"],
+                           _site(e["name"])))
+        elif cat == "cuda_runtime" and "correlation" in e.get("args", {}):
+            runtime[e["args"]["correlation"]] = (e["tid"], e["ts"])
+        elif cat == "kernel":
+            kernels.append(e)
+    launches, unmatched = [], 0
+    for k in kernels:
+        at = runtime.get(k.get("args", {}).get("correlation"))
+        if at is None:
+            unmatched += 1
+            continue
+        launches.append((at[0], at[1], k["name"], k["dur"]))
+    out = _attribute(frames, launches)
+    return {"kernels": len(kernels), "unmatched": unmatched,
+            **{view: rows[:top] for view, rows in out.items()}}
 
 
 def _b13_host_us(calls: int = 2000) -> dict:
@@ -90,6 +189,8 @@ def main() -> int:
                     help="name of the hasher (crypto.hashers.HASHERS)")
     ap.add_argument("--walls", type=int, default=0,
                     help="free-running proves timed before the profiled one")
+    ap.add_argument("--by-site", action="store_true",
+                    help="one more prove, its kernels grouped by call site")
     ap.add_argument("--path", default="fib_small",
                     choices=("fib_small", "rescue_f128", "fib_f128",
                              "lamport", "rescue_raps", "fib_f62",
@@ -181,6 +282,7 @@ def main() -> int:
     busy_us = _busy_us(intervals)
     b13 = (_b13_host_us() if args.path not in ("fib_small", "fib_f62",
                                                 "fib_f62_rp62") else None)
+    by_site = _by_site(prover, trace, args.top) if args.by_site else None
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "trace_log2": args.log2,
@@ -198,6 +300,7 @@ def main() -> int:
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels": [{"name": n[:90], "launches": c, "ms": us / 1000}
                         for n, (c, us) in top],
+        "call_sites": by_site,
     }))
     return 0
 
