@@ -45,7 +45,13 @@ Phases, each printed with its elapsed seconds as it ends:
    group's threads included), the coin's candidates below and above p62
    (1 ... 448, from p62 - 2 and up to 2^64 - 1, a seed of p - 1's); the
    f62 draws of the Rp62_248, BLAKE3 and SHA3 coins with rejected
-   candidates planted.
+   candidates planted. B16, the f128 leaf DFT under WINTER_MXU_NTT=1: the
+   digit product, the recombine and whole leaf DFTs at leaf sizes 2 ...
+   128, both directions, on random values with corners (digit 9, bits
+   63-69, across the words), over batches that are no multiple of a block
+   and the paths' (32, 2^17) and (64, 2^16), on diagonal sums at their
+   maximum, in chunks with a ragged last one; whole NTTs of 2^10, 2^18 and
+   2^21 rows under the switch against the radix-2 B13n NTT.
 3. card vs CPU (the CPU's proofs come from a process of their own, started
    after phase 1, which proves while the card runs phase 2): a fib proof
    at trace 2^10 with each f64 hasher on the card,
@@ -60,7 +66,9 @@ Phases, each printed with its elapsed seconds as it ends:
    1024 x 22, sequence assertions) on the three routes. The f62 prover:
    fib over f62 at trace 2^10 (cubic) with Blake3_256 and Rp62_248 on the
    three routes, Sha3_256 on the resident one, Rp62_248 with two
-   partitions (quadratic) on the resident one.
+   partitions (quadratic) on the resident one. The f128 fib (no extension)
+   and Rescue cases again under WINTER_MXU_NTT=1 on the resident and
+   phased routes: B16 launched, no B13n, the CPU's bytes.
 4. main path: fib over f64, trace 2^18, bench.py's options — with Rp64_256
    (bench.py's workload) and with Blake3_256 — on the resident and the
    phased route: per route one warm-up, its resident device run under
@@ -77,7 +85,9 @@ Phases, each printed with its elapsed seconds as it ends:
    Rescue chain, Blake3_256, ProofOptions(42, 4, 16, NONE, 8, 31), LDE
    2^20: the resident route, its device run under the sync check) and the
    CLI's fib (Blake3_256, ProofOptions(28, 8, 16, NONE, 8, 31), LDE 2^21:
-   the phased route with fused FRI); and one Rescue prove with Sha3_256.
+   the phased route with fused FRI); both again under WINTER_MXU_NTT=1
+   (B16 leaves, no B13n stage and no gather launched), with the bytes of
+   the proves without it; and one Rescue prove with Sha3_256.
    Then this slice's paths, timed the same way with the CLI's options:
    bench.py's lamport workload (256 signatures, trace 2^18 x 22, LDE 2^21;
    keys, signatures and trace built by native/f128.c before the proves) and
@@ -96,7 +106,11 @@ Phases, each printed with its elapsed seconds as it ends:
    the draw's own permutations, the warp running the draw loop in step and
    a group of 4 threads computing each further candidate), the composition
    width; B0, B0x, B4 and B5 at the f64 main path's shapes, each launch on
-   the next of rotating copies of its inputs.
+   the next of rotating copies of its inputs; B16's two kernels at the
+   leaf shapes of the f128 paths under the switch, beside the whole leaf
+   DFT, its bound (tensor-core operations, 32 bytes per element), the
+   radix-2 transform of the same shape and torch._int_mm of the same digit
+   product.
 
 The line before the last is the kernels' JSON record; the last line is the
 run's verdict. Any failure exits non-zero before that verdict. Without a
@@ -172,6 +186,21 @@ F128_CORNERS = [0, 1, 2, P128 - 1, P128 - 2, (2**128 - 1) % P128,
                 (2**128 - 2) % P128, 2**64 - 1, 2**64, 2**64 + 1, 2**127,
                 2**100, 2**28, 2**96, 2**32, PHI128, PHI128 + 1,
                 P128 - PHI128, P128 - 2**64]
+
+# B16, the f128 leaf DFT under WINTER_MXU_NTT=1: the digit product's
+# non-zero (l, j) blocks are 361 of 37 × 19, each an n × n s8 matrix, so a
+# leaf DFT of n points over B columns is 2·361·n²·B int8 operations on the
+# tensor cores (1,979 T/s dense on the H100 SXM, NVIDIA data sheet); the
+# product reads 16 bytes and writes 37 int32 sums (148 bytes) per element,
+# the recombine reads those and writes 16 bytes, two f128 products each
+INT8_OPS_PER_S = 1979e12
+MXU_BLOCKS = 361
+SUMS_BYTES = 37 * 4
+# f128 values whose 7-bit digit 9 (bits 63-69) spans the (lo, hi) words, or
+# whose top digit (bits 126-127) is set, beside canonical corners
+MXU_CORNERS = [0, 1, 2, P128 - 1, P128 - 2, 2**127, 2**63, 2**64,
+               2**64 - 1, 0x7F << 63, 1 << 69, (1 << 69) | (1 << 63),
+               2**126 + 2**63]
 
 
 # B14 / B14n: one f62 product is a 64×64→128-bit product (4 partial
@@ -473,6 +502,15 @@ def _bound_ntt_stage(n: int, cols: int, half: int):
                   (2 * n * cols + half) * 16)
 
 
+def _bound_mxu(n: int, cols: int, nbytes: float):
+    """(bound ms, bound_by) of B16 work over (n, cols) elements: the larger
+    of the tensor-core time of the 2·361·n²·cols int8 operations and the
+    bytes time of ``nbytes`` per element."""
+    ops_ms = 2 * MXU_BLOCKS * n * n * cols / INT8_OPS_PER_S * 1000
+    bytes_ms = nbytes * n * cols / HBM_BYTES_PER_S * 1000
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def _bound_f62(x, y, mul: bool):
     """B14 on x ∘ y: each element of the operands read once (a broadcast
     operand's own, an int none) and each result written once, 8 bytes
@@ -552,11 +590,11 @@ def _check_syncs(prover, on: bool) -> None:
 
 def _kernel_modules():
     from winterfell_tpu_torch.ops import (blake3, device_coin, f62, f128,
-                                          field_kernels, jive, rescue, rp62,
-                                          sha3)
+                                          field_kernels, jive, ntt_mxu,
+                                          rescue, rp62, sha3)
 
     return (rescue, field_kernels, device_coin, blake3, sha3, jive, f128, f62,
-            rp62)
+            rp62, ntt_mxu)
 
 
 def _launches():
@@ -736,7 +774,7 @@ def _main(pool) -> int:
     from winterfell_tpu_torch.examples import rescue as rescue128
     from winterfell_tpu_torch.examples import rescue_raps as raps
     from winterfell_tpu_torch.ops import _build, device_coin, f128, field_kernels
-    from winterfell_tpu_torch.ops import f62, rp62
+    from winterfell_tpu_torch.ops import f62, ntt_mxu, rp62
     from winterfell_tpu_torch.ops import goldilocks as gl
     from winterfell_tpu_torch.ops import blake3, jive, rescue, sha3
     from winterfell_tpu_torch.ops.device_hashers import DEVICE_HASHERS
@@ -1161,6 +1199,84 @@ def _main(pool) -> int:
                   (n_, cols, inverse))
     log("B13n f128 NTT stages equal their plain version (2 ... 2^%d rows)"
         % (big.bit_length() - 1))
+    # B16, the f128 leaf DFT under WINTER_MXU_NTT=1: the digit product, the
+    # recombine and whole leaf DFTs against their plain versions, bit for
+    # bit, at leaf sizes 2 ... 128 in both directions: random canonical
+    # values with MXU_CORNERS in the first columns, over batches that are no
+    # multiple of a block (1, 77, 1000) and over the paths' (32, 2^17) and
+    # (64, 2^16); diagonal sums at their maximum 127²·19n; a leaf DFT in
+    # chunks with a ragged last one; then whole NTTs under the switch (2^10,
+    # 2^18, 2^21 rows) against the radix-2 B13n NTT, with no B13n launch
+    prod_k, rec_k, leaf_k = ((ntt_mxu.digit_product_plain,
+                              ntt_mxu.recombine_plain, ntt_mxu.leaf_dft)
+                             if REHEARSAL else
+                             (ntt_mxu.digit_product_kernel,
+                              ntt_mxu.recombine_kernel,
+                              ntt_mxu.leaf_dft_kernel))
+
+    def mxu_x(n_, cols):
+        x = _rng_f128(rng, (n_, cols), dev)
+        k = min(cols, len(MXU_CORNERS))
+        x[:, :k] = _f128_of(MXU_CORNERS[:k], dev)[None]
+        return x
+
+    def check_leaf(n_, cols, inverse):
+        wt = ntt_mxu.leaf_matrix_dev(n_, inverse, dev)
+        x = mxu_x(n_, cols)
+        d = prod_k(wt, x)
+        check("ntt_mxu_product", d, ntt_mxu.digit_product_plain(wt, x),
+              (n_, cols, inverse))
+        check("ntt_mxu_recombine", rec_k(d, n_),
+              ntt_mxu.recombine_plain(d, n_), (n_, cols, inverse))
+        check("ntt_mxu_recombine", leaf_k(x, wt, n_),
+              ntt_mxu.leaf_dft_plain(x, wt, n_), ("leaf", n_, cols, inverse))
+
+    for n_ in (2, 4, 8, 16, 32, 64, 128):
+        for inverse in (False, True):
+            for cols in (1, 77, 1000):
+                check_leaf(n_, cols, inverse)
+        top = torch.full((37 * n_, 33), 127 * 127 * 19 * n_,
+                         dtype=torch.int32, device=dev)
+        check("ntt_mxu_recombine", rec_k(top, n_),
+              ntt_mxu.recombine_plain(top, n_), ("maximum sums", n_))
+    for n_, cols in ((32, big // 16), (64, big // 32)):
+        check_leaf(n_, cols, False)
+    chunk_elems = ntt_mxu._CHUNK_ELEMS
+    ntt_mxu._CHUNK_ELEMS = 1 << 12
+    try:
+        before = ntt_mxu.LAUNCHES["ntt_mxu_product"]
+        x, wt = mxu_x(32, 1000), ntt_mxu.leaf_matrix_dev(32, True, dev)
+        got = leaf_k(x, wt, 32)
+        chunks = ntt_mxu.LAUNCHES["ntt_mxu_product"] - before
+    finally:
+        ntt_mxu._CHUNK_ELEMS = chunk_elems
+    check("ntt_mxu_recombine", got, ntt_mxu.leaf_dft_plain(x, wt, 32),
+          ("chunks", chunks))
+    if not REHEARSAL and chunks != 8:
+        raise AssertionError(f"leaf_dft: {chunks} chunks of 128 columns for "
+                             "1000")
+    for n_, cols in ((1 << 10, 4), (1 << (log2_trace), 2), (big, 2)):
+        x = _rng_f128(rng, (n_, cols), dev)
+        for inverse in (False, True):
+            want = f128._ntt_core(x, n_, inverse)
+            before = _launches()
+            f128._USE_MXU = True
+            try:
+                got = f128._ntt_core(x, n_, inverse)
+            finally:
+                f128._USE_MXU = False
+            after = _launches()
+            check("ntt_mxu_recombine", got, want, ("ntt", n_, cols, inverse))
+            if not REHEARSAL and (
+                    after["f128_ntt_stage"] != before["f128_ntt_stage"] or
+                    after["ntt_mxu_product"] == before["ntt_mxu_product"]):
+                raise AssertionError(f"the NTT of {n_} rows under the switch "
+                                     "launched B13n or no B16")
+    log("B16 ntt_mxu_product and ntt_mxu_recombine equal their plain "
+        f"versions (leaves 2 ... 128, both directions, up to (32, {big // 16}) "
+        f"columns; {chunks} chunks); the NTT under WINTER_MXU_NTT=1 equals "
+        f"the radix-2 one at 2^10, 2^{log2_trace}, 2^{big.bit_length() - 1} "
+        "rows")
     # the f128 draws of the byte coins, rejected candidates planted (an
     # element >= p: 2^128 - 1)
     for coin in ("blake3_256", "blake3_192", "sha3_256"):
@@ -1386,10 +1502,39 @@ def _main(pool) -> int:
             if proof.to_bytes() != cpu:
                 raise AssertionError(f"{label}: {route} proof bytes on {dev} "
                                      "differ from the CPU's")
+        mxu_routes = ()
+        if label.startswith(("f128 fib", "f128 rescue")) and "NONE" in label:
+            # and under WINTER_MXU_NTT=1 (B16 leaves, no B13n), the bytes of
+            # the CPU's proof without the switch
+            mxu_routes = ("resident", "fused")
+            f128._USE_MXU = True
+            try:
+                for route in mxu_routes:
+                    switches[switch](route)
+                    prover = make_prover(dev)
+                    _check_syncs(prover, sync and not REHEARSAL
+                                 and route == "resident")
+                    _reset_launches()
+                    proof = prover.prove(make_trace(dev))
+                    counts = _launches()
+                    check_route(route, f"{label} on {dev}, mxu")
+                    if proof.to_bytes() != cpu:
+                        raise AssertionError(
+                            f"{label}: {route} proof bytes on {dev} under "
+                            "WINTER_MXU_NTT=1 differ from the CPU's")
+                    if not REHEARSAL and (counts["f128_ntt_stage"] or min(
+                            counts[k] for k in ntt_mxu.LAUNCHES) == 0):
+                        raise AssertionError(f"{label}: {route} under "
+                                             "WINTER_MXU_NTT=1 launched B13n "
+                                             "or no B16")
+            finally:
+                f128._USE_MXU = False
         prover_device._RESIDENT_ON_F64, prover_device._FUSED_FRI_ON = defaults
         device_limb._RESIDENT_ON, device_limb._FUSED_FRI_ON = defaults128
         log(f"{label}: card bytes == CPU bytes on {', '.join(routes)} "
-            f"({len(cpu)} B), the CPU's verified")
+            f"({len(cpu)} B)" + (f", and on {', '.join(mxu_routes)} under "
+                                 "WINTER_MXU_NTT=1" if mxu_routes else "")
+            + "; the CPU's verified")
     phase("3 card vs cpu", t0)
 
     # 4 ----- the main path at full size, both routes ------------------------
@@ -1523,9 +1668,14 @@ def _main(pool) -> int:
     # kernel of the f128 prover must have launched
     f128_kernels = ("f128_add", "f128_sub", "f128_mul", "f128_ntt_stage")
 
-    def must_launch128(key, hasher_name: str) -> None:
+    def must_launch128(key, hasher_name: str, mxu: bool = False) -> None:
+        """The f128 engine's kernels, the hasher's and its f128 draw were
+        launched, K3 not; under WINTER_MXU_NTT=1 (``mxu``) B16's in place
+        of B13n, which must not have launched."""
         h = DEVICE_HASHERS[hasher_name]
-        for name in f128_kernels + tuple(
+        engine = (f128_kernels[:-1] + tuple(ntt_mxu.LAUNCHES) if mxu
+                  else f128_kernels)
+        for name in engine + tuple(
                 k for k in h.launches if k not in ("gl_mul", h.draw)) + (
                 h.draw + "_f128",):
             if not REHEARSAL and runs[key][name] <= 0:
@@ -1533,6 +1683,8 @@ def _main(pool) -> int:
                                      f"{key} prove")
         if not REHEARSAL and runs[key]["gl_mul"]:
             raise AssertionError(f"the {key} prove launched K3")
+        if not REHEARSAL and mxu and runs[key]["f128_ntt_stage"]:
+            raise AssertionError(f"the {key} prove launched B13n")
 
     device_limb._RESIDENT_ON = device_limb._FUSED_FRI_ON = True
     tb = time.perf_counter()
@@ -1543,9 +1695,10 @@ def _main(pool) -> int:
     Rescue128 = F128Prover.accelerate(rescue128.RescueProver)
     rprover = Rescue128(rescue_f128, Blake3_256, device=dev)
     rpub = rprover.get_pub_inputs(rtrace)
-    timed_path(rprover, "resident", ("rescue_f128", "resident"),
-               f"rescue_f128 resident: Rescue chain, trace 2^{log2_trace}",
-               rescue128.RescueAir, rpub, rtrace)
+    r_bytes = timed_path(
+        rprover, "resident", ("rescue_f128", "resident"),
+        f"rescue_f128 resident: Rescue chain, trace 2^{log2_trace}",
+        rescue128.RescueAir, rpub, rtrace)
     must_launch128(("rescue_f128", "resident"), "blake3_256")
     ftrace = fib128.build_fib_trace(F128, 2 * n, device=dev)
     fpub = ftrace.get(1, n - 1)
@@ -1555,13 +1708,36 @@ def _main(pool) -> int:
     level_fuse = device_limb._LEVEL_FUSE
     if REHEARSAL:  # the card's LDE (2^21) is above the resident limit
         device_limb._LEVEL_FUSE = big // 2
-    timed_path(F128Prover.accelerate(fib128.FibProver)(cli, Blake3_256,
-                                                       device=dev),
-               "fused", ("fib_cli_f128", "fused"),
-               f"fib_cli_f128 fused: fib, trace 2^{log2_trace}",
-               fib128.FibAir, fpub, ftrace)
-    device_limb._LEVEL_FUSE = level_fuse
+    fprover = F128Prover.accelerate(fib128.FibProver)(cli, Blake3_256,
+                                                      device=dev)
+    f_bytes = timed_path(fprover, "fused", ("fib_cli_f128", "fused"),
+                         f"fib_cli_f128 fused: fib, trace 2^{log2_trace}",
+                         fib128.FibAir, fpub, ftrace)
     must_launch128(("fib_cli_f128", "fused"), "blake3_256")
+    # this slice: both paths again under WINTER_MXU_NTT=1 (every NTT six-step
+    # over B16 leaves: no B13n stage, no gather), timed the same way; their
+    # bytes must be the switch-off ones (which equal the CPU's, phase 3)
+    f128._USE_MXU = True
+    try:
+        for prover, route, key, label, air, pub, tr, want in (
+                (rprover, "resident", "rescue_f128_mxu",
+                 f"rescue_f128 resident, WINTER_MXU_NTT=1: trace "
+                 f"2^{log2_trace}", rescue128.RescueAir, rpub, rtrace,
+                 r_bytes),
+                (fprover, "fused", "fib_cli_f128_mxu",
+                 f"fib_cli_f128 fused, WINTER_MXU_NTT=1: trace "
+                 f"2^{log2_trace}", fib128.FibAir, fpub, ftrace, f_bytes)):
+            device_limb._LEVEL_FUSE = (big // 2 if REHEARSAL and
+                                       route == "fused" else level_fuse)
+            got = timed_path(prover, route, (key, route), label, air, pub,
+                             tr)
+            if got != want:
+                raise AssertionError(f"{label}: the proof differs from the "
+                                     "one without the switch")
+            must_launch128((key, route), "blake3_256", mxu=True)
+    finally:
+        f128._USE_MXU = False
+    device_limb._LEVEL_FUSE = level_fuse
     # one Rescue prove with Sha3_256: the SHA3 coin's f128 draw
     tracing.set_phase_sync(True)
     _reset_launches()
@@ -1911,6 +2087,52 @@ def _main(pool) -> int:
                                                     coin, "f128"),
                      _bound_alu(0, 4 * dw * (k + 1) + 16 * k * d + 8))
 
+    # B16 at the leaf shapes the two f128 paths launch under the switch:
+    # (32, 2^17), rescue_f128's LDE levels (and the CLI fib's 2^10 level);
+    # (64, 2^16), the CLI fib's 2^11 level; (16, 2^16), rescue_f128's trace
+    # iNTT; (8, 2^18), the CLI fib's first FRI fold. Beside each: the two
+    # kernels' whole leaf DFT (leaf_ms) against the bound of its 32 bytes
+    # per element and its tensor-core operations (leaf_bound_ms), the
+    # radix-2 transform of the same (n, B) (the gather and the B13n stages,
+    # radix2_ms), and torch._int_mm of the same (37n × 19n) · (19n × B)
+    # digit product (the product's library_ms: the digits made beforehand)
+    mxu_shapes = ((32, big // 16), (64, big // 32), (16, big // 32),
+                  (8, big // 8))
+
+    def mxu_entry(kind, n_, cols):
+        x = _rng_f128(rng, (n_, cols), dev)
+        wt = ntt_mxu.leaf_matrix_dev(n_, False, dev)
+        if kind == "product":
+            e = entry((n_, cols), _rotating(prod_k, wt, x),
+                      lambda: ntt_mxu.digit_product_plain(wt, x),
+                      _bound_mxu(n_, cols, 16 + SUMS_BYTES))
+            a8 = wt[: 37 * n_, : 19 * n_].contiguous()
+            b8 = ntt_mxu.digitize_plain(x)
+            e["library_ms"] = _kernel_ms(lambda: torch._int_mm(a8, b8), reps)
+            e["leaf_ms"] = _kernel_ms(
+                _rotating(lambda x_: leaf_k(x_, wt, n_), x), reps)
+            e["leaf_bound_ms"], e["leaf_bound_by"] = _bound_mxu(n_, cols, 32)
+            e["radix2_ms"] = _kernel_ms(
+                _rotating(lambda x_: f128._ntt_core(x_, n_, False), x), reps)
+            return e
+        d = prod_k(wt, x)  # two f128 products an element
+        return entry((n_, cols), _rotating(lambda d_: rec_k(d_, n_), d),
+                     lambda: ntt_mxu.recombine_plain(d, n_),
+                     _bound(2 * IMAD_PER_F128_MUL * n_ * cols,
+                            (SUMS_BYTES + 16) * n_ * cols))
+
+    mxu_paths = (("rescue_f128_mxu", "resident"), ("fib_cli_f128_mxu", "fused"))
+    mxu_src = "winterfell_tpu_torch/csrc/ntt_mxu.cu (f128.cuh)"
+    records_mxu = [
+        ("ntt_mxu_product", "winterfell_tpu/ops/ntt_mxu.py:162 (_leaf_dft_jit "
+         "under leaf_dft :189: the s8 digit product on the MXU, _digitize :93 "
+         "fused; jnp program, no Pallas kernel)", mxu_src,
+         [mxu_entry("product", n_, c_) for n_, c_ in mxu_shapes], mxu_paths),
+        ("ntt_mxu_recombine", "winterfell_tpu/ops/ntt_mxu.py:108 (_recombine "
+         "under _leaf_dft_jit :162; jnp program, no Pallas kernel)", mxu_src,
+         [mxu_entry("recombine", n_, c_) for n_, c_ in mxu_shapes],
+         mxu_paths),
+    ]
     x128, y128 = _rng_f128(rng, (big,), dev), _rng_f128(rng, (big,), dev)
     e128, c128 = (_rng_f128(rng, (big // 2, 2), dev),
                   _rng_f128(rng, (big // 2, 1), dev))
@@ -2186,7 +2408,7 @@ def _main(pool) -> int:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": None, "shape": main["shape"], "shapes": shapes})
     for name, replaces, source, shapes, (key, phased_key) in (
-            records64 + records128 + records62):
+            records64 + records128 + records62 + records_mxu):
         main = shapes[0]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -2197,13 +2419,18 @@ def _main(pool) -> int:
             "max_abs_err": errs[name], "max_diff": errs[name],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "shape": main["shape"], "shapes": shapes})
+            "library_ms": main.get("library_ms"), "shape": main["shape"],
+            "shapes": shapes})
     for kr in kernels:
         for s in kr["shapes"]:
+            extra = "".join(
+                f", {k} {s[k]:.4f}" for k in ("library_ms", "leaf_ms",
+                                              "leaf_bound_ms", "radix2_ms")
+                if k in s)
             log(f"{kr['name']} {s['shape']}: {s['ms']:.4f} ms (launched "
                 f"back to back from Python {s['host_ms']:.4f} ms), plain "
                 f"{s['plain_ms']:.1f} ms, bound {s['bound_ms']:.4f} ms "
-                f"({s['bound_by']})")
+                f"({s['bound_by']}){extra}")
     phase("5 kernel times", t0)
 
     print(smi, flush=True)

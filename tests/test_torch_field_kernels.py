@@ -22,6 +22,7 @@ from winterfell_tpu.ops.pallas_kernels import (
 )
 from winterfell_tpu_torch.ops import field_kernels as fk
 from winterfell_tpu_torch.ops import goldilocks as gl
+from winterfell_tpu_torch.ops import ntt_mxu
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -281,3 +282,13 @@ def test_kernel_on_cpu_tensors_raises_instead_of_falling_back():
         gl.ntt_stage_kernel(torch.empty_like(e), tw, 1, src=e)
     with pytest.raises(ValueError, match="CUDA tensors"):
         gl.fri_fold_kernel(e, 4, 7, e[0])
+    # B16, the f128 leaf DFT: the digit product, the recombine, both
+    x = torch.zeros((8, 5, 2), dtype=torch.int64)
+    wt = ntt_mxu.leaf_matrix_dev(8, False, "cpu")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ntt_mxu.digit_product_kernel(wt, x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ntt_mxu.recombine_kernel(torch.zeros((37 * 8, 5), dtype=torch.int32),
+                                 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ntt_mxu.leaf_dft_kernel(x, wt, 8)

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from winterfell_tpu_torch import FieldExtension, ProofOptions, Rp64_256, F64
+from winterfell_tpu_torch import F128
 from winterfell_tpu_torch.crypto.hashers import Blake3_256, RpJive64_256
 from winterfell_tpu_torch.examples import fibonacci as tfib
 from winterfell_tpu_torch.examples import rescue_raps
@@ -459,3 +460,84 @@ def test_f62_card_proofs_equal_cpu_proofs(cuda, monkeypatch):
             card = prover.prove(fib_f62.build_fib_f62_trace(64))
             assert card.to_bytes() == cpu, (hasher.name, route)
     assert checked == ["blake3_256", "rp62_248"]
+
+
+def test_ntt_mxu_kernels_equal_plain_and_card_proof_launches_them(
+        cuda, monkeypatch):
+    """B16 (the f128 leaf DFT under WINTER_MXU_NTT=1): the digit product and
+    the recombine against their plain versions at leaf sizes 2 ... 128, both
+    directions, on random canonical values with corners in the first
+    columns (digit 9, bits 63-69, across the words) and on diagonal sums at
+    their maximum, batches that are no multiple of a block and chunks with
+    a ragged last one; a whole NTT under the switch equals the radix-2 one;
+    and an f128 fib proof under the switch on the resident (sync-checked)
+    and phased routes gives the CPU's bytes, launching B16 and no B13n."""
+    from winterfell_tpu_torch.ops import f128, ntt_mxu
+
+    p = f128.P
+    rng = np.random.default_rng(16)
+    corners = [0, 1, p - 1, p - 2, 2**127, 2**63, 2**64, 2**64 - 1,
+               0x7F << 63, 1 << 69, (1 << 69) | (1 << 63)]
+
+    def rand(n, cols):
+        w = rng.integers(0, 2**64, size=(n, cols, 2), dtype=np.uint64)
+        w[..., 1] = np.minimum(w[..., 1], np.uint64(2**64 - 2))
+        x = torch.from_numpy(w.view(np.int64)).to(cuda)
+        k = min(cols, len(corners))
+        x[:, :k] = f128.to_device(np.array(corners[:k], dtype=object),
+                                  cuda)[None]
+        return x
+
+    for n in (2, 4, 8, 16, 32, 64, 128):
+        for inverse in (False, True):
+            wt = ntt_mxu.leaf_matrix_dev(n, inverse, cuda)
+            for cols in (1, 77, 1000):
+                x = rand(n, cols)
+                d = ntt_mxu.digit_product_kernel(wt, x)
+                assert torch.equal(d, ntt_mxu.digit_product_plain(wt, x)), \
+                    (n, inverse, cols)
+                assert torch.equal(ntt_mxu.recombine_kernel(d, n),
+                                   ntt_mxu.recombine_plain(d, n))
+                assert torch.equal(ntt_mxu.leaf_dft_kernel(x, wt, n),
+                                   ntt_mxu.leaf_dft_plain(x, wt, n))
+        top = torch.full((37 * n, 33), 127 * 127 * 19 * n, dtype=torch.int32,
+                         device=cuda)
+        assert torch.equal(ntt_mxu.recombine_kernel(top, n),
+                           ntt_mxu.recombine_plain(top, n)), n
+    monkeypatch.setattr(ntt_mxu, "_CHUNK_ELEMS", 1 << 12)
+    x = rand(32, 1000)
+    wt = ntt_mxu.leaf_matrix_dev(32, False, cuda)
+    ntt_mxu.reset_launches()
+    assert torch.equal(ntt_mxu.leaf_dft_kernel(x, wt, 32),
+                       ntt_mxu.leaf_dft_plain(x, wt, 32))
+    assert ntt_mxu.LAUNCHES["ntt_mxu_product"] == 8
+    monkeypatch.undo()
+    x = rand(1 << 12, 3)
+    want = f128._ntt_core(x, 1 << 12, False)
+    # the f128 prover under the switch: the card's bytes the CPU's without
+    opts = ProofOptions(28, 8, 0, FieldExtension.NONE, 4, 7)
+    prover_cls = F128Prover.accelerate(tfib.FibProver)
+    cpu = prover_cls(opts, Blake3_256, device="cpu").prove(
+        tfib.build_fib_trace(F128, 512)).to_bytes()
+    monkeypatch.setattr(f128, "_USE_MXU", True)
+    assert torch.equal(f128._ntt_core(x, 1 << 12, False), want)
+    for route in ("resident", "fused"):
+        monkeypatch.setattr(device_limb, "_RESIDENT_ON", route == "resident")
+        prover = prover_cls(opts, Blake3_256)
+        run = prover._resident_run
+
+        def sync_checked(*args, run=run, **kwargs):
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return run(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(prev)
+
+        prover._resident_run = sync_checked
+        f128.reset_launches()
+        ntt_mxu.reset_launches()
+        card = prover.prove(tfib.build_fib_trace(F128, 512, device=cuda))
+        assert card.to_bytes() == cpu, route
+        assert f128.LAUNCHES["f128_ntt_stage"] == 0, route
+        assert min(ntt_mxu.LAUNCHES.values()) > 0, route

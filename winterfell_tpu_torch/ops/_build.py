@@ -55,7 +55,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("rescue", "goldilocks", "blake3", "keccak", "jive", "f128", "f62",
-           "rp62")
+           "rp62", "ntt_mxu")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -27,11 +27,19 @@ so the CPU tests hold every caller to what the kernel reads.
 
 Everything else here (extension ops, powers, inversion, NTT plans, coset
 LDE, FRI folding) is torch code over those entry points.
+
+Under ``WINTER_MXU_NTT=1`` (``_USE_MXU``, the JAX engine's switch, off by
+default) every NTT is the six-step decomposition down to leaves of at most
+``_MXU_LEAF`` points, each leaf level one B16 digit product and recombine on
+the tensor cores (``ops/ntt_mxu.py``), the levels joined by the mid
+twiddles (one B13 multiply) and a transpose: no B13n stage and no
+bit-reversal gather runs, the FRI fold's N-point iNTT included.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 from functools import lru_cache
 from typing import Dict
 
@@ -46,6 +54,12 @@ PHI = (45 << 40) - 1  # 2^128 mod p
 I64 = torch.int64
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
+
+# the MXU leaf mode of winterfell_tpu/ops/f128.py (:506): read at import,
+# tests and chip_smoke.py set the flag itself (plans of the two modes are
+# cached under different keys)
+_USE_MXU = os.environ.get("WINTER_MXU_NTT", "0") not in ("", "0")
+_MXU_LEAF = 1 << 7
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"f128_add": 0, "f128_sub": 0, "f128_mul": 0,
@@ -561,10 +575,49 @@ def _root(n: int, inverse: bool) -> int:
     return pow(r, P - 2, P) if inverse else r
 
 
+def mid_twiddles(n: int, a: int, inverse: bool, device):
+    """(b, a, 2) table ω^(j·k), j < b = n/a, k < a, of the n-th root ω (its
+    inverse), by row doubling from power series of ω^(2^r) (JAX
+    _mid_twiddles_dev, winterfell_tpu/ops/f128.py:467)."""
+    def build():
+        root = _root(n, inverse)
+        tw, m = fill(1, (1, a), device), 1
+        while m < n // a:
+            ratio = power_series(pow(root, m, P), a, device)
+            tw = torch.cat([tw, f128_mul(tw, ratio[None])])
+            m *= 2
+        return tw
+
+    return _cached(("mxu_mid", n, a, inverse, str(device)), build)
+
+
+def _mxu_plan(n: int, inverse: bool, device):
+    """The six-step plan of the JAX engine under the switch (ntt_plan :515):
+    ("leaf", padded leaf matrix) up to 128 points, else ("six", mid
+    twiddles (b, a, 2), inner plan of b, outer plan of a) with a =
+    2^⌊log2 n / 2⌋; built once per process, the leaf matrices and mid
+    twiddles of every level with it."""
+    from . import ntt_mxu
+
+    def build():
+        if n <= _MXU_LEAF:
+            return ("leaf", ntt_mxu.leaf_matrix_dev(n, inverse, device))
+        a = 1 << ((n.bit_length() - 1) // 2)
+        return ("six", mid_twiddles(n, a, inverse, device),
+                _mxu_plan(n // a, inverse, device),
+                _mxu_plan(a, inverse, device))
+
+    return _cached(("mxu_plan", n, inverse, str(device)), build)
+
+
 def ntt_plan(n: int, inverse: bool, device):
-    """(bit-reversal permutation, (n/2, 2) powers of the n-th root) of a
-    size-n transform on ``device``, built once per process (the permutation
-    is a host copy: the resident prove builds its plans before its run)."""
+    """The tables of a size-n transform on ``device``, built once per
+    process: under the switch the six-step plan (``_mxu_plan``), else (the
+    bit-reversal permutation, (n/2, 2) powers of the n-th root). The
+    permutation and the leaf matrices are host copies: the resident prove
+    builds its plans before its run."""
+    if _USE_MXU:
+        return _mxu_plan(n, inverse, device)
     perm = _cached(("bitrev", n, str(device)),
                    lambda: torch.from_numpy(_bitrev_perm(n)).to(device))
     tw_all = _cached(("tw", n, inverse, str(device)),
@@ -619,11 +672,32 @@ def ntt_stage(x, tw_all, half: int):
     return x
 
 
+def _ntt_mxu(x, n: int, plan):
+    """The six-step NTT of x (n, ..., 2) along axis 0 (JAX _ntt_core :571):
+    a leaf is one B16 leaf DFT; above, the inner NTTs over b, the mid
+    twiddles, the transpose and the outer NTTs over a."""
+    from . import ntt_mxu
+
+    if plan[0] == "leaf":
+        return ntt_mxu.leaf_dft(x.reshape(n, -1, 2).contiguous(), plan[1],
+                                n).reshape(x.shape)
+    _, mid_tw, inner, outer = plan
+    rest = x.shape[1:-1]
+    b, a = mid_tw.shape[0], mid_tw.shape[1]
+    y = _ntt_mxu(x.reshape((b, a) + rest + (2,)), b, inner)
+    y = f128_mul(y, mid_tw.reshape((b, a) + (1,) * len(rest) + (2,)))
+    z = y.transpose(0, 1).contiguous()
+    return _ntt_mxu(z, a, outer).reshape(x.shape)
+
+
 def _ntt_core(x, n: int, inverse: bool):
     """x: (n, ..., 2) → NTT/iNTT without the 1/n scale, natural order in
-    and out: the bit-reversal gather, then log2 n stages."""
+    and out: the bit-reversal gather, then log2 n stages; under the switch
+    the six-step NTT over B16 leaves."""
     if n == 1:
         return x
+    if _USE_MXU:
+        return _ntt_mxu(x, n, ntt_plan(n, inverse, x.device))
     shape = x.shape
     perm, tw_all = ntt_plan(n, inverse, x.device)
     y = x.index_select(0, perm).reshape(n, -1, 2)

@@ -23,7 +23,11 @@ JSON object: the route the prove took (resident by default;
 summed over kernels, the share of the wall during which some kernel ran
 (busy share, from the union of the kernel intervals), the number of kernel
 launches, the host time per launch (the wall outside every kernel interval
-over the launches), and the kernels with the most device time. On the f128
+over the launches), the kernels with the most device time, and each hand
+kernel's launches as its wrapper counts them (``launches_by_kernel``: every
+``LAUNCHES`` count above 0, B16's ``ntt_mxu_product`` and
+``ntt_mxu_recombine`` among them when ``WINTER_MXU_NTT=1`` puts the f128
+NTTs on int8 tensor cores; ``mxu_ntt`` says whether it did). On the f128
 paths it also times one B13 multiply on 1024 elements called 2000 times in
 a row, through its entry point (``f128_mul``: checks, layout, output
 allocation and launch) and as the bare launch with the layout and output
@@ -250,6 +254,12 @@ def main() -> int:
             else:
                 prover = F128Prover.accelerate(FibProver)(options, hasher)
                 trace = build_fib_trace(F128, 2 << args.log2, device="cuda")
+    from .ops import (blake3, device_coin, f62, f128, field_kernels, jive,
+                      ntt_mxu, rp62, sha3)
+    from .ops import rescue as rescue_ops
+
+    counted = (rescue_ops, field_kernels, device_coin, blake3, sha3, jive,
+               f128, f62, rp62, ntt_mxu)
     prover.prove(trace)
     tracing.set_phase_sync(False)
     torch.cuda.synchronize()
@@ -259,11 +269,15 @@ def main() -> int:
         prover.prove(trace)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
+    for mod in counted:
+        mod.reset_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         prover.prove(trace)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    launches_by_kernel = {k: v for mod in counted
+                          for k, v in mod.LAUNCHES.items() if v}
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -289,6 +303,7 @@ def main() -> int:
         "path": args.path,
         "hasher": hasher.name,
         "route": route,
+        "mxu_ntt": f128._USE_MXU,
         "wall_s": wall,
         "free_walls_s": walls,
         "kernel_launches": len(kernels),
@@ -300,6 +315,7 @@ def main() -> int:
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels": [{"name": n[:90], "launches": c, "ms": us / 1000}
                         for n, (c, us) in top],
+        "launches_by_kernel": launches_by_kernel,
         "call_sites": by_site,
     }))
     return 0

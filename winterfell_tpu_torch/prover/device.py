@@ -696,10 +696,12 @@ class DeviceProver(Prover):
     def _resident_consts(self, air, boundary, fri_opts, n_layers: int):
         """Builds, before the device run, every table the run reads that
         needs a host-to-device copy or is fixed per proof shape (as the JAX
-        make_consts does, device.py:1589-1620): the NTT plans, the offset
-        powers, the CE and DEEP domain constants, the FRI inverse offset
-        powers, the Frobenius and Rescue tables; returns the per-proof
-        sequence-assertion coefficients (boundary values)."""
+        make_consts does, device.py:1589-1620): the NTT plans (under
+        WINTER_MXU_NTT=1 the f128 engine's whole six-step plans: the leaf
+        matrices of every leaf size and the mid twiddles of every level),
+        the offset powers, the CE and DEEP domain constants, the FRI inverse
+        offset powers, the Frobenius and Rescue tables; returns the
+        per-proof sequence-assertion coefficients (boundary values)."""
         from ..ops import rescue
 
         eng = self.engine
